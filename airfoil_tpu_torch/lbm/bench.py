@@ -1,0 +1,68 @@
+"""LBM throughput benchmark (MLUPS: million lattice-site updates per second).
+
+Port of ``airfoil_tpu/lbm/bench.py`` with the same grid defaults and steps
+per call. ``kernel`` says which path is timed: the CUDA kernel
+(``lbm_steps``) or the plain torch step (``core.lbm_step``); it defaults to
+the kernel on a CUDA device and to the plain step on the CPU, asking for
+the kernel on the CPU raises, and the result reports what ran. The loop is
+timed on the host clock between two ``torch.cuda.synchronize()`` calls.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from airfoil_tpu.config import LBMConfig
+from airfoil_tpu_torch.device import DTYPE, resolve_device
+from airfoil_tpu_torch.lbm.core import equilibrium_init, lbm_step
+from airfoil_tpu_torch.lbm.kernel import lbm_steps
+from airfoil_tpu_torch.lbm.masks import rasterize_airfoil
+
+__all__ = ["bench_mlups"]
+
+
+def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
+                n_calls: int = 8, device=None,
+                kernel: bool | None = None) -> dict:
+    """Time ``n_calls`` calls of ``steps_per_call`` fused steps on the
+    NACA 2412 lattice at alpha=6, after one warm-up call (which also
+    builds the kernel)."""
+    from airfoil_tpu.models import naca4
+
+    dev = resolve_device(device)
+    on_cuda = dev.type == "cuda"
+    kernel = on_cuda if kernel is None else kernel
+    if kernel and not on_cuda:
+        raise ValueError("the CUDA kernel runs only on a CUDA device")
+
+    cfg = LBMConfig(nx=nx, ny=ny)
+    mask = torch.as_tensor(rasterize_airfoil(naca4(2, 4, 12, 50), 6.0, cfg),
+                           dtype=DTYPE).to(dev)
+    f = equilibrium_init(ny, nx, cfg.u0, dev)
+    step = lbm_steps if kernel else lbm_step
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+
+    f = step(f, mask, cfg.u0, cfg.tau, steps=steps_per_call)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        f = step(f, mask, cfg.u0, cfg.tau, steps=steps_per_call)
+    sync()
+    dt = time.perf_counter() - t0
+
+    site_updates = nx * ny * steps_per_call * n_calls
+    return {
+        "mlups": site_updates / dt / 1e6,
+        "seconds": dt,
+        "grid": f"{nx}x{ny}",
+        "steps": steps_per_call * n_calls,
+        "kernel": bool(kernel),
+        "device": torch.cuda.get_device_name(dev) if on_cuda else "cpu",
+        "platform": "gpu" if on_cuda else "cpu",
+        "finite": bool(torch.isfinite(f).all()),
+    }

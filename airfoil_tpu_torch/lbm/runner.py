@@ -1,0 +1,132 @@
+"""Server-side wind tunnel: state management and per-frame stepping.
+
+Port of ``airfoil_tpu/lbm/runner.py`` with an explicit ``device``. A frame
+is one ``lbm_steps`` call (the CUDA kernel on a CUDA device; the plain
+torch step on the CPU) followed by the force/separation reductions and
+the render fields. The lattice stays on the device; only three scalars
+are read back per frame, and the fields are tensors until the API layer
+converts them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from airfoil_tpu.config import LBMConfig, DEFAULT_LBM
+from airfoil_tpu_torch.device import DTYPE, resolve_device
+from airfoil_tpu_torch.lbm.core import equilibrium_init
+from airfoil_tpu_torch.lbm.diagnostics import forces_and_separation, render_fields
+from airfoil_tpu_torch.lbm.kernel import lbm_steps
+from airfoil_tpu_torch.lbm.masks import build_mask
+
+__all__ = ["LBMState", "WindTunnel"]
+
+
+@dataclass
+class LBMState:
+    f: torch.Tensor
+    solid: torch.Tensor
+    outline: np.ndarray
+    alpha: float
+    u0: float
+    step_count: int = 0
+
+
+@dataclass
+class WindTunnel:
+    """One simulation session (one uploaded geometry).
+
+    EMA smoothing of CL/CD (0.9/0.1) and separation (0.85/0.15) as in the
+    reference. ``device`` is resolved by ``device.resolve_device``: it
+    raises for ``cuda`` without a CUDA device.
+    """
+
+    coords: np.ndarray
+    cfg: LBMConfig = field(default_factory=lambda: DEFAULT_LBM)
+    device: str | torch.device | None = None
+    state: LBMState | None = None
+    cl_smooth: float | None = None
+    cd_smooth: float | None = None
+    sep_smooth: float = 0.0
+
+    def __post_init__(self):
+        self.coords = np.asarray(self.coords, np.float64)
+        self.device = resolve_device(self.device)
+        self.reset(alpha=6.0, u0=self.cfg.u0)
+
+    def _solid(self, mask: np.ndarray) -> torch.Tensor:
+        return torch.tensor(mask, dtype=DTYPE, device=self.device)
+
+    def reset(self, alpha: float, u0: float | None = None):
+        u0 = self.cfg.u0 if u0 is None else u0
+        mask, outline = build_mask(self.coords, alpha, self.cfg)
+        f = equilibrium_init(self.cfg.ny, self.cfg.nx, u0, self.device)
+        self.state = LBMState(f=f, solid=self._solid(mask), outline=outline,
+                              alpha=alpha, u0=u0)
+        self.cl_smooth = None
+        self.cd_smooth = None
+        self.sep_smooth = 0.0
+
+    def load_state(self, f, solid, outline, alpha: float, u0: float,
+                   step_count: int, cl_smooth: float | None = None,
+                   cd_smooth: float | None = None, sep_smooth: float = 0.0):
+        """Continue from a mid-run state given as numpy arrays (for example
+        ``np.asarray`` of a JAX ``LBMState``), smoothers included."""
+        f = np.asarray(f, np.float32)
+        solid = np.asarray(solid, np.float32)
+        shape = (9, self.cfg.ny, self.cfg.nx)
+        if f.shape != shape or solid.shape != shape[1:]:
+            raise ValueError(f"state shapes {f.shape}/{solid.shape} do not "
+                             f"match the {shape} lattice")
+        self.state = LBMState(
+            f=torch.tensor(f, dtype=DTYPE, device=self.device),
+            solid=self._solid(solid), outline=np.asarray(outline, np.float64),
+            alpha=float(alpha), u0=float(u0), step_count=int(step_count))
+        self.cl_smooth = cl_smooth
+        self.cd_smooth = cd_smooth
+        self.sep_smooth = sep_smooth
+
+    def set_alpha(self, alpha: float):
+        """Re-rasterise the mask, keep the flow state."""
+        st = self.state
+        mask, outline = build_mask(self.coords, alpha, self.cfg)
+        st.solid = self._solid(mask)
+        st.outline = outline
+        st.alpha = alpha
+
+    def set_u0(self, u0: float):
+        self.state.u0 = float(u0)
+
+    def frame(self, steps: int | None = None) -> dict:
+        """Advance one frame; return stats + field tensors."""
+        st = self.state
+        steps = self.cfg.steps_per_frame if steps is None else steps
+        st.f = lbm_steps(st.f, st.solid, st.u0, self.cfg.tau, steps=steps)
+        st.step_count += steps
+
+        cl, cd, sep = forces_and_separation(
+            st.f, st.solid, st.u0, self.cfg.chord_cells)
+        cl, cd, sep = torch.stack([cl, cd, sep]).tolist()
+        self.cl_smooth = cl if self.cl_smooth is None else \
+            0.9 * self.cl_smooth + 0.1 * cl
+        self.cd_smooth = cd if self.cd_smooth is None else \
+            0.9 * self.cd_smooth + 0.1 * cd
+        self.sep_smooth = 0.85 * self.sep_smooth + 0.15 * sep
+
+        speed, cp, vort, ux, uy = render_fields(st.f, st.solid, st.u0)
+        return {
+            "cl": self.cl_smooth,
+            "cd": max(self.cd_smooth, 0.0),
+            "separation": self.sep_smooth,
+            "reynolds": st.u0 * self.cfg.chord_cells / self.cfg.nu,
+            "step": st.step_count,
+            "alpha": st.alpha,
+            "fields": {
+                "speed": speed, "cp": cp, "vorticity": vort,
+                "ux": ux, "uy": uy,
+            },
+            "outline": st.outline,
+        }

@@ -22,59 +22,19 @@
 // far below the card's rate, so the kernel is bound by memory traffic and,
 // on small lattices, by the launch cadence: the 384x192 default lattice is
 // 2.65 MB per buffer, so both buffers sit in the 50 MB L2 and a step is a
-// few microseconds. Keeping K steps on chip per launch (clusters or
-// temporal blocking) is the next step for this kernel.
+// few microseconds.
+//
+// The per-cell arithmetic after the pull (lbm_cell.cuh) is shared with the
+// K-steps-per-launch kernel lbm_steps_tiled.cu, which serves lattices too
+// large for L2 and keeps K steps on chip per launch.
 //
 // Precision: built without fast math, so 1/rho, sqrtf and the clamp's
 // division are IEEE; nvcc still contracts multiply-adds into FMAs, so the
 // result is not bit-equal to the torch step (held to rtol 1e-5, atol 1e-6).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lbm_cell.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__host__ __device__ constexpr int ex_of(int i) {
-  return (i == 1 || i == 5 || i == 8) ? 1 : (i == 3 || i == 6 || i == 7) ? -1 : 0;
-}
-__host__ __device__ constexpr int ey_of(int i) {
-  return (i == 2 || i == 5 || i == 6) ? 1 : (i == 4 || i == 7 || i == 8) ? -1 : 0;
-}
-__host__ __device__ constexpr int opp_of(int i) {
-  return i == 0 ? 0 : (i <= 4 ? (i + 1) % 4 + 1 : (i - 3) % 4 + 5);
-}
-// Weights rounded from double, as numpy's float32 D2Q9_W is.
-__host__ __device__ constexpr float w_of(int i) {
-  return i == 0 ? (float)(4.0 / 9.0) : (i <= 4 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0));
-}
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  return v < 0 ? v + n : (v >= n ? v - n : v);
-}
-
-struct StepParams {
-  float feq_in[9];  // equilibrium at (rho=1, u=(U0,0)) for inlet/top/bottom
-  float inv_tau;
-};
-
-__global__ void __launch_bounds__(kThreads)
-bounce_bits_kernel(const float* __restrict__ solid, uint16_t* __restrict__ bits,
-                   int ny, int nx) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= ny * nx) return;
-  const int y = cell / nx;
-  const int x = cell - y * nx;
-  const bool self = solid[cell] > 0.5f;
-  unsigned b = 0;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const int src = wrap(y - ey_of(i), ny) * nx + wrap(x - ex_of(i), nx);
-    if (self || solid[src] > 0.5f) b |= 1u << i;
-  }
-  bits[cell] = static_cast<uint16_t>(b);
-}
 
 __global__ void __launch_bounds__(kThreads)
 lbm_step_kernel(const float* __restrict__ f, float* __restrict__ out,
@@ -85,9 +45,7 @@ lbm_step_kernel(const float* __restrict__ f, float* __restrict__ out,
   const int y = cell / nx;
   const int x = cell - y * nx;
   const unsigned b = bits[cell];
-  const bool is_solid = b & 1u;
-  const bool is_outlet = x == nx - 1;
-  const bool is_edge_eq = (x == 0 || y == 0 || y == ny - 1) && !is_outlet;
+  const bool is_outlet = is_outlet_at(x, nx);
   const int left = y * nx + wrap(x - 1, nx);
 
   // Stream (gather from x - e_i), bounce back, outlet copy.
@@ -105,38 +63,9 @@ lbm_step_kernel(const float* __restrict__ f, float* __restrict__ out,
     fin[i] = f[src];
   }
 
-  float rho = fin[0];
+  lbm_cell(fin, b & 1u, is_outlet, is_edge_eq_at(y, x, ny, nx), p);
 #pragma unroll
-  for (int i = 1; i < 9; ++i) rho = rho + fin[i];
-  const float inv = 1.0f / rho;
-  const float ux = (fin[1] + fin[5] + fin[8] - fin[3] - fin[6] - fin[7]) * inv;
-  const float uy = (fin[2] + fin[5] + fin[6] - fin[4] - fin[7] - fin[8]) * inv;
-
-  // Stability net; comparisons rather than fminf/fmaxf so NaN propagates
-  // as it does through jnp.clip / torch.clamp.
-  const float rho_c = rho < 0.5f ? 0.5f : (rho > 2.0f ? 2.0f : rho);
-  const float spd = sqrtf(ux * ux + uy * uy);
-  const float scale = spd > 0.35f ? 0.35f / (spd > 1e-12f ? spd : 1e-12f) : 1.0f;
-  const float uxc = ux * scale;
-  const float uyc = uy * scale;
-  const float uu = uxc * uxc + uyc * uyc;
-
-  const bool skip_collide = is_solid || is_outlet;
-  const bool apply_edge = is_edge_eq && !is_solid;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    float v;
-    if (apply_edge) {
-      v = p.feq_in[i];
-    } else if (skip_collide) {
-      v = fin[i];
-    } else {
-      const float eu = (float)ex_of(i) * uxc + (float)ey_of(i) * uyc;
-      const float feq = w_of(i) * rho_c * (1.0f + 3.0f * eu + 4.5f * eu * eu - 1.5f * uu);
-      v = fin[i] - (fin[i] - feq) * p.inv_tau;
-    }
-    out[i * n + cell] = v;
-  }
+  for (int i = 0; i < 9; ++i) out[i * n + cell] = fin[i];
 }
 
 }  // namespace

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -82,8 +83,11 @@ def _build(name: str, sources: list[str]) -> str:
 
 def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>.so`` from ``sources``, file
-    names relative to ``csrc/``. Cached per process."""
+    names relative to ``csrc/``. Cached per process; different libraries
+    build concurrently from different threads."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LIBS.get(name)
         if lib is None:
             paths = [os.path.join(CSRC_DIR, s) for s in sources]

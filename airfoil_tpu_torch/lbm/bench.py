@@ -1,10 +1,12 @@
 """LBM throughput benchmark (MLUPS: million lattice-site updates per second).
 
 Port of ``airfoil_tpu/lbm/bench.py`` with the same grid defaults and steps
-per call. ``kernel`` says which path is timed: the CUDA kernel
-(``lbm_steps``) or the plain torch step (``core.lbm_step``); it defaults to
-the kernel on a CUDA device and to the plain step on the CPU, asking for
-the kernel on the CPU raises, and the result reports what ran. The loop is
+per call. ``kernel`` says whether a CUDA kernel or the plain torch step
+(``core.lbm_step``) is timed; it defaults to a kernel on a CUDA device and
+to the plain step on the CPU, and asking for a kernel on the CPU raises.
+``tiled`` says which kernel: ``lbm_steps_tiled`` or ``lbm_steps``; left
+``None`` it follows the wind tunnel's rule (``prefers_tiled`` against the
+card's L2 size). The result reports what ran. The loop is
 timed on the host clock between two ``torch.cuda.synchronize()`` calls.
 """
 
@@ -17,7 +19,8 @@ import torch
 from airfoil_tpu.config import LBMConfig
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init, lbm_step
-from airfoil_tpu_torch.lbm.kernel import lbm_steps
+from airfoil_tpu_torch.lbm.kernel import (lbm_steps, lbm_steps_tiled,
+                                          prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import rasterize_airfoil
 
 __all__ = ["bench_mlups"]
@@ -25,7 +28,8 @@ __all__ = ["bench_mlups"]
 
 def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
                 n_calls: int = 8, device=None,
-                kernel: bool | None = None) -> dict:
+                kernel: bool | None = None,
+                tiled: bool | None = None) -> dict:
     """Time ``n_calls`` calls of ``steps_per_call`` fused steps on the
     NACA 2412 lattice at alpha=6, after one warm-up call (which also
     builds the kernel)."""
@@ -35,13 +39,18 @@ def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
     on_cuda = dev.type == "cuda"
     kernel = on_cuda if kernel is None else kernel
     if kernel and not on_cuda:
-        raise ValueError("the CUDA kernel runs only on a CUDA device")
+        raise ValueError("the CUDA kernels run only on a CUDA device")
+    if tiled is None:
+        tiled = kernel and prefers_tiled(
+            ny, nx, torch.cuda.get_device_properties(dev).L2_cache_size)
+    if tiled and not kernel:
+        raise ValueError("tiled names a CUDA kernel; the plain step has none")
 
     cfg = LBMConfig(nx=nx, ny=ny)
     mask = torch.as_tensor(rasterize_airfoil(naca4(2, 4, 12, 50), 6.0, cfg),
                            dtype=DTYPE).to(dev)
     f = equilibrium_init(ny, nx, cfg.u0, dev)
-    step = lbm_steps if kernel else lbm_step
+    step = (lbm_steps_tiled if tiled else lbm_steps) if kernel else lbm_step
 
     def sync():
         if on_cuda:
@@ -62,6 +71,7 @@ def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
         "grid": f"{nx}x{ny}",
         "steps": steps_per_call * n_calls,
         "kernel": bool(kernel),
+        "tiled": bool(tiled),
         "device": torch.cuda.get_device_name(dev) if on_cuda else "cpu",
         "platform": "gpu" if on_cuda else "cpu",
         "finite": bool(torch.isfinite(f).all()),

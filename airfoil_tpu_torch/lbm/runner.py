@@ -1,11 +1,11 @@
 """Server-side wind tunnel: state management and per-frame stepping.
 
 Port of ``airfoil_tpu/lbm/runner.py`` with an explicit ``device``. A frame
-is one ``lbm_steps`` call (the CUDA kernel on a CUDA device; the plain
-torch step on the CPU) followed by the force/separation reductions and
-the render fields. The lattice stays on the device; only three scalars
-are read back per frame, and the fields are tensors until the API layer
-converts them.
+is one ``lbm_steps`` or ``lbm_steps_tiled`` call (a CUDA kernel on a CUDA
+device; the plain torch step on the CPU) followed by the force/separation
+reductions and the render fields. The lattice stays on the device; only
+three scalars are read back per frame, and the fields are tensors until
+the API layer converts them.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from airfoil_tpu.config import LBMConfig, DEFAULT_LBM
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init
 from airfoil_tpu_torch.lbm.diagnostics import forces_and_separation, render_fields
-from airfoil_tpu_torch.lbm.kernel import lbm_steps
+from airfoil_tpu_torch.lbm.kernel import (lbm_steps, lbm_steps_tiled,
+                                          prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import build_mask
 
 __all__ = ["LBMState", "WindTunnel"]
@@ -42,6 +43,13 @@ class WindTunnel:
     EMA smoothing of CL/CD (0.9/0.1) and separation (0.85/0.15) as in the
     reference. ``device`` is resolved by ``device.resolve_device``: it
     raises for ``cuda`` without a CUDA device.
+
+    ``tiled`` picks the step kernel, as the JAX tunnel's ``tiled`` does:
+    left ``None``, it resolves on a CUDA device by ``prefers_tiled`` against
+    the card's L2 size (the one-step kernel while the lattice's two buffers
+    fit in L2, the K-steps-per-launch kernel beyond), and to ``False`` on
+    the CPU. ``tiled=True`` on the CPU runs the plain step through
+    ``lbm_steps_tiled``.
     """
 
     coords: np.ndarray
@@ -51,10 +59,15 @@ class WindTunnel:
     cl_smooth: float | None = None
     cd_smooth: float | None = None
     sep_smooth: float = 0.0
+    tiled: bool | None = None
 
     def __post_init__(self):
         self.coords = np.asarray(self.coords, np.float64)
         self.device = resolve_device(self.device)
+        if self.tiled is None:
+            self.tiled = self.device.type == "cuda" and prefers_tiled(
+                self.cfg.ny, self.cfg.nx,
+                torch.cuda.get_device_properties(self.device).L2_cache_size)
         self.reset(alpha=6.0, u0=self.cfg.u0)
 
     def _solid(self, mask: np.ndarray) -> torch.Tensor:
@@ -104,7 +117,8 @@ class WindTunnel:
         """Advance one frame; return stats + field tensors."""
         st = self.state
         steps = self.cfg.steps_per_frame if steps is None else steps
-        st.f = lbm_steps(st.f, st.solid, st.u0, self.cfg.tau, steps=steps)
+        step = lbm_steps_tiled if self.tiled else lbm_steps
+        st.f = step(st.f, st.solid, st.u0, self.cfg.tau, steps=steps)
         st.step_count += steps
 
         cl, cd, sep = forces_and_separation(

@@ -5,15 +5,25 @@ each counterpart is easy to find. It imports ``torch`` and never ``jax``;
 from ``airfoil_tpu`` it uses only the jax-free ``config``, ``geometry``,
 ``models`` and ``native`` modules.
 
-Ported so far (the interactive wind-tunnel path):
+Ported so far:
 
 - ``device``          — explicit device policy (``cuda`` by default, no
   silent CPU fallback), float32, TF32 off.
-- ``lbm``             — D2Q9 core as torch ops, the hand-written CUDA
-  step kernel (``csrc/lbm_steps.cu``), diagnostics, ``WindTunnel``,
-  MLUPS bench.
+- ``lbm``             — the interactive wind tunnel: D2Q9 core as torch
+  ops, the hand-written CUDA step kernels (``csrc/lbm_steps.cu``,
+  ``csrc/lbm_steps_tiled.cu``), diagnostics, ``WindTunnel``, MLUPS bench.
 - ``api``             — the ``/lbm/*`` session handlers and the stdlib
   HTTP server.
+- ``numerics``        — jnp primitives torch lacks (``interp``,
+  ``nanmax``/``nanmin``, JAX-tie ``clip``) and a forward-mode ``Dual``.
+- ``paneling``        — ``repanel``, ``panel_geometry``,
+  ``smooth_geometry``, ``rotate_about_quarter_chord``.
+- ``inviscid``        — the linear-vortex panel solver (``build_operator``,
+  ``solve_inviscid``, ``velocity_at_points``).
+- ``viscous``         — closures, the boundary-layer march (plain torch,
+  and the hand-written CUDA kernel ``csrc/bl_march.cu`` behind
+  ``viscous.kernel``), the wake operator and the direct coupled solve
+  ``solve_viscous``.
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,9 @@ Each library is a set of ``csrc/*.cu`` files with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) and bound with ``ctypes``:
 no PyTorch headers, so a build takes seconds. Libraries are built at first
 use into ``airfoil_tpu_torch/_build/`` (git-ignored), rebuilt when a
-source in ``csrc/`` is newer than the library, and never at import time.
+source in ``csrc/`` is newer than the library or its nvcc flags changed
+(they are kept beside it as ``lib<name>.flags``), and never at import
+time.
 
 A failed build raises with nvcc's output; there is no fallback. The
 compiler's stderr (including ``-Xptxas -v`` register and spill counts) is
@@ -49,14 +51,21 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
-def _is_fresh(lib_path: str, sources: list[str]) -> bool:
+def _is_fresh(lib_path: str, sources: list[str], flags: str) -> bool:
     if not os.path.exists(lib_path):
         return False
+    try:
+        with open(f"{lib_path[:-3]}.flags") as fh:
+            if fh.read() != flags:
+                return False
+    except FileNotFoundError:
+        return False
+    # Every header counts for every library (a new header rebuilds them all).
     deps = sources + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     return os.path.getmtime(lib_path) >= max(map(os.path.getmtime, deps))
 
 
-def _build(name: str, sources: list[str]) -> str:
+def _build(name: str, sources: list[str], flags: list[str]) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
     # The file lock serialises builds across processes; the library is
@@ -64,10 +73,11 @@ def _build(name: str, sources: list[str]) -> str:
     # never sees a half-written file.
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if _is_fresh(lib_path, sources):
+        stamp = " ".join([*NVCC_FLAGS, *flags])
+        if _is_fresh(lib_path, sources, stamp):
             return lib_path
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", tmp, *sources]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         with open(os.path.join(BUILD_DIR, f"lib{name}.log"), "w") as log:
             log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -78,19 +88,23 @@ def _build(name: str, sources: list[str]) -> str:
                 f"nvcc failed (exit {proc.returncode}) building {name}:\n"
                 f"{proc.stderr[-4000:]}")
         os.replace(tmp, lib_path)
+        with open(f"{lib_path[:-3]}.flags", "w") as fh:
+            fh.write(stamp)
     return lib_path
 
 
-def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: list[str],
+                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>.so`` from ``sources``, file
-    names relative to ``csrc/``. Cached per process; different libraries
-    build concurrently from different threads."""
+    names relative to ``csrc/``, with ``flags`` after ``NVCC_FLAGS``.
+    Cached per process; different libraries build concurrently from
+    different threads."""
     with _LOCK:
         name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with name_lock:
         lib = _LIBS.get(name)
         if lib is None:
             paths = [os.path.join(CSRC_DIR, s) for s in sources]
-            lib = ctypes.CDLL(_build(name, paths))
+            lib = ctypes.CDLL(_build(name, paths, list(flags)))
             _LIBS[name] = lib
         return lib

@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's wind-tunnel path (``airfoil_tpu_torch``) on the card and
-fails (non-zero exit, no result line) if any phase fails:
+Drives the port's wind-tunnel path and its XFOIL-replacement path
+(``airfoil_tpu_torch``) on the card and fails (non-zero exit, no result
+line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build   — builds both CUDA kernels from ``airfoil_tpu_torch/csrc``
-   afresh, in parallel, and logs ptxas's registers and spills and the
-   tiled kernel's shared memory per block;
+2. build   — builds the three CUDA libraries (``lbm_steps``,
+   ``lbm_steps_tiled``, ``bl_march``) from ``airfoil_tpu_torch/csrc``
+   afresh, one nvcc each, in parallel, and logs ptxas's registers and
+   spills and the tiled kernel's shared memory per block;
 3. kernel  — ``lbm_steps`` (one step per launch) against the plain torch
    step on the card, NACA 2412 at alpha=6 on 128x32, 384x192, 640x384 and
    2048x1024 after 1, 8 and 64 steps: rtol 1e-5, atol 1e-6;
@@ -29,6 +31,45 @@ fails (non-zero exit, no result line) if any phase fails:
    4-step call (CUDA events) and the frame latency at 384x192 and
    2048x1024, for the kernels and the plain torch step.
 
+Then the XFOIL-replacement path (paneling -> panel solver -> coupled
+viscous solve), held to the JAX package's outputs in
+``tests/golden/torch_viscous.json`` (written by
+``tests/make_torch_goldens.py``):
+
+9.  inviscid — ``build_operator`` + ``solve_inviscid`` on the card for
+    NACA 0012, 2412 and 4412 at 160 panels, alpha 0 and 5: CL and Cm
+    within rtol 1e-4 (atol 1e-5, for the zero-lift cases) of the goldens;
+10. march    — the ``bl_march`` kernel against the plain torch march on the
+    card: theta, dstar, hk, cf within rtol 1e-4, identical flags and
+    x_transition, on every station of five flat-plate lanes (Blasius,
+    tripped, free transition at 6e6 and 1e7, none at 2e5), of the NACA
+    2412 sides at alpha 0 and 5 tripped at x 0.05 (where the plain
+    march's own rounding ensemble must not spread), and of the inputs the
+    main path gives the kernel: all 25 side-pair marches of a default
+    solve tripped at x 0.05 (the ensemble may spread at the last station
+    alone, which is then left out) and all 50 wake marches of that solve
+    (whose ensemble must not spread) and of a free one (NACA 2412, alpha
+    5). The free NACA 2412 sides and the free solve's wakes are held up to
+    the first station where the plain march's ensemble spreads, and the
+    sides' x_transition must be one of that ensemble's. Then the physics
+    anchors on the kernel alone;
+11. viscous  — ``solve_viscous`` at its defaults (160 panels, 80 stations,
+    24 wake stations, 24 passes) for NACA 2412 at alpha 0 and 5 and NACA
+    0012 at 0, +-4 and 16, Re 1e6: CL within 0.025, CD within 5 %, Cm
+    within 0.01 and x_transition within 0.05 c of the golden ensemble's
+    range, ``converged`` one of its values (alpha 16 must not converge);
+    and tripped at x 0.05 (NACA 2412 at alpha 0 and 5, 0012 at 4), where
+    the reference is no knife edge, at the same bars around the nominal
+    golden run and ``converged`` equal to it; exactly 2 x 25 march
+    launches per solve; then the slow-tier anchors of
+    ``tests/test_viscous.py`` (three more solves: 0012 at Re 5e5 and 5e6,
+    and tripped at x 0.1);
+12. viscous speed — the default solve's wall time, its split and a
+    ``torch.profiler`` trace of it (device time of the march kernels and
+    of all operations), and one side-pair march at 80 stations with the
+    kernel and the plain march (its device operations counted by the
+    profiler over its first intervals).
+
 The line before last is the card as nvidia-smi names it, the line before
 that the kernel table (JSON), and the last line the result (JSON). JAX is
 never imported.
@@ -37,6 +78,7 @@ never imported.
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import shutil
@@ -62,12 +104,26 @@ TILED_GRIDS = [(24, 12), (128, 32), (384, 192), (1000, 600), (2048, 1024),
 LARGE = (2048, 1024)
 SPEED_GRIDS = [(640, 384), (384, 192), (2048, 1024), (4096, 2048)]
 N_FRAMES = 20
-KERNELS = {   # name: (source, the Pallas kernel it replaces)
+KERNELS = {   # name: (source, the TPU code it replaces)
     "lbm_steps": ("airfoil_tpu_torch/csrc/lbm_steps.cu",
                   "airfoil_tpu/lbm/kernel.py:55"),     # lbm_steps_pallas
     "lbm_steps_tiled": ("airfoil_tpu_torch/csrc/lbm_steps_tiled.cu",
                         "airfoil_tpu/lbm/kernel.py:144"),
+    "bl_march": ("airfoil_tpu_torch/csrc/bl_march.cu",
+                 "airfoil_tpu/viscous/march.py:157"),  # march_side's scan
 }
+GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_viscous.json")
+N_PANELS = 160
+MARCH_RTOL = 1e-4
+ENSEMBLE_K = np.arange(-16, 17)
+PROFILED_INTERVALS = 4
+# (absolute, relative) bar of each viscous output around the golden range.
+VISCOUS_BARS = {"cl": (0.025, 0.0), "cd": (0.0, 0.05), "cm": (0.01, 0.0),
+                "xtr_upper": (0.05, 0.0), "xtr_lower": (0.05, 0.0)}
+FLAT_PLATE = [(1e6, 30.0, 1.0), (1e6, 9.0, 0.05), (6e6, 9.0, 1.0),
+              (1e7, 9.0, 1.0), (2e5, 9.0, 1.0)]    # (Re, n_crit, x_trip)
+FALKNER_SKAN = [(0.0, 2.591), (-0.05, 2.676), (-0.10, 2.801),
+                (-0.14, 2.963)]                    # (beta, H)
 
 
 def log(msg: str):
@@ -81,16 +137,20 @@ def require(cond: bool, msg: str):
 
 def naca4_coords(m=2, p=4, t=12, n=60) -> np.ndarray:
     """NACA 4-digit loop (open trailing edge, cosine spacing, Selig order
-    TE -> upper -> LE -> lower -> TE)."""
+    TE -> upper -> LE -> lower -> TE); the formula of
+    ``airfoil_tpu.models.naca4``, which made the golden outputs."""
     m, p, t = m / 100.0, p / 10.0, t / 100.0
     x = 0.5 * (1.0 - np.cos(np.pi * np.arange(n + 1) / n))
     yt = 5.0 * t * (0.2969 * np.sqrt(x) - 0.1260 * x - 0.3516 * x ** 2
                     + 0.2843 * x ** 3 - 0.1015 * x ** 4)
-    front = x < p
-    yc = np.where(front, m / p ** 2 * (2 * p * x - x ** 2),
-                  m / (1 - p) ** 2 * ((1 - 2 * p) + 2 * p * x - x ** 2))
-    theta = np.arctan(np.where(front, 2 * m / p ** 2 * (p - x),
-                               2 * m / (1 - p) ** 2 * (p - x)))
+    yc = np.zeros_like(x)
+    theta = np.zeros_like(x)
+    if m > 0:
+        front = x < p
+        yc = np.where(front, m / p ** 2 * (2 * p * x - x ** 2),
+                      m / (1 - p) ** 2 * ((1 - 2 * p) + 2 * p * x - x ** 2))
+        theta = np.arctan(np.where(front, 2 * m / p ** 2 * (p - x),
+                                   2 * m / (1 - p) ** 2 * (p - x)))
     upper = np.stack([x - yt * np.sin(theta), yc + yt * np.cos(theta)], 1)
     lower = np.stack([x + yt * np.sin(theta), yc - yt * np.cos(theta)], 1)
     return np.concatenate([upper[::-1], lower[1:]])
@@ -138,10 +198,11 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
 
 
 # ── phases ──────────────────────────────────────────────────────────────────
-def phase_build(cuda_build, kernel):
-    """Both libraries, one nvcc each, started together."""
+def phase_build(cuda_build, kernel, march_kernel):
+    """The three libraries, one nvcc each, started together."""
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    loaders = {"lbm_steps": kernel.load, "lbm_steps_tiled": kernel.load_tiled}
+    loaders = {"lbm_steps": kernel.load, "lbm_steps_tiled": kernel.load_tiled,
+               "bl_march": march_kernel.load}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -436,6 +497,503 @@ def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
                                 call_ms[LARGE + ("plain",)])}
 
 
+# ── the XFOIL-replacement path ──────────────────────────────────────────────
+def load_goldens() -> dict:
+    with open(GOLDENS) as fh:
+        return json.load(fh)
+
+
+def naca_operator(code: str, dev, paneling, inviscid):
+    """The port's operator for a NACA 4-digit section at ``N_PANELS``,
+    from the geometry the goldens were made from."""
+    coords = naca4_coords(int(code[0]), int(code[1]), int(code[2:]), 100)
+    xp, yp = paneling.repanel(coords, N_PANELS, device=dev)
+    return inviscid.build_operator(paneling.panel_geometry(xp, yp))
+
+
+def phase_inviscid(goldens, ops, inviscid):
+    worst = 0.0
+    for g in goldens["inviscid"]:
+        sol = inviscid.solve_inviscid(ops[g["naca"]], g["alpha"])
+        cl, cm = float(sol.cl), float(sol.cm)
+        dcl, dcm = abs(cl - g["cl"]), abs(cm - g["cm"])
+        ok = (dcl <= 1e-4 * abs(g["cl"]) + 1e-5
+              and dcm <= 1e-4 * abs(g["cm"]) + 1e-5)
+        log(f"[inviscid] NACA {g['naca']} alpha={g['alpha']:g}: CL={cl!r} "
+            f"(golden {g['cl']!r}, diff {dcl:.3e}) Cm={cm!r} (golden "
+            f"{g['cm']!r}, diff {dcm:.3e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"inviscid NACA {g['naca']} alpha {g['alpha']}")
+        worst = max(worst, dcl, dcm)
+    return worst
+
+
+def _hold_march(got, want, name: str, stop=None) -> float:
+    """Kernel march ``got`` against plain march ``want`` ((L, M) fields),
+    lane by lane on stations [0, stop[lane]); returns the largest abs
+    difference."""
+    lanes, m = want.theta.shape
+    worst = 0.0
+    for lane in range(lanes):
+        k = m if stop is None else stop[lane]
+        for f in ("theta", "dstar", "hk", "cf"):
+            a = getattr(got, f)[lane, :k]
+            b = getattr(want, f)[lane, :k]
+            d = (a - b).abs()
+            worst = max(worst, float(d.max()))
+            require(bool((d <= MARCH_RTOL * b.abs()).all()),
+                    f"{name} lane {lane} {f}: max rel "
+                    f"{float((d / b.abs()).max()):.3e}")
+        for f in ("turb", "separated"):
+            require(torch.equal(getattr(got, f)[lane, :k],
+                                getattr(want, f)[lane, :k]),
+                    f"{name} lane {lane}: {f} flags differ")
+    return worst
+
+
+def ensemble_stop(ens: dict, fields=("theta", "dstar", "turb", "separated"),
+                  rtol: float = MARCH_RTOL) -> int:
+    """First station at which a march's rounding ensemble spreads.
+
+    ``ens`` maps each of ``fields`` to a (K, M) array (numpy or torch) of
+    one lane's K ensemble members, the nominal member in row K // 2. A
+    station spreads where a float field leaves ``rtol`` of the nominal
+    member's or a flag differs from it; returns M if none does.
+    """
+    spread = None
+    for f in fields:
+        v = ens[f]
+        c = v[v.shape[0] // 2]
+        flag = str(v.dtype) in ("bool", "torch.bool")
+        out = v != c if flag else abs(v - c) > rtol * abs(c)
+        out = np.asarray(out.tolist()).any(0)
+        spread = out if spread is None else spread | out
+    return int(np.argmax(spread)) if spread.any() else len(spread)
+
+
+@contextlib.contextmanager
+def recording(mk):
+    """Records (a copy of) the arguments of every ``march_side`` and
+    ``march_wake`` call that reaches the kernel module ``mk``."""
+    calls = {"march_side": [], "march_wake": []}
+    originals = {name: getattr(mk, name) for name in calls}
+
+    def wrap(name):
+        def run(*args):
+            calls[name].append([a.clone() if torch.is_tensor(a) else a
+                                for a in args])
+            return originals[name](*args)
+        return run
+
+    for name in calls:
+        setattr(mk, name, wrap(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(mk, name, fn)
+
+
+def _stack_calls(calls, n_arrays: int) -> list:
+    """Recorded march calls as the lanes of one call: their first
+    ``n_arrays`` arguments ((L, M) or (M,)) stacked, the rest (numbers or
+    0-d tensors, one per call) as per-lane tensors."""
+    arrays = [torch.cat([c[i].reshape(-1, c[i].shape[-1]) for c in calls])
+              for i in range(n_arrays)]
+    params = []
+    for i in range(n_arrays, len(calls[0])):
+        params.append(torch.cat([
+            torch.as_tensor(c[i], dtype=torch.float32, device=c[0].device)
+            .expand(c[0].reshape(-1, c[0].shape[-1]).shape[0])
+            for c in calls]))
+    return [a.contiguous() for a in arrays + params]
+
+
+def _rows(bl, rows):
+    return type(bl)(*(a[rows] for a in bl))
+
+
+def _flat_plate_lanes(dev):
+    n = len(FLAT_PLATE)
+    s = torch.linspace(0.004, 1.0, 120, device=dev).expand(n, -1).contiguous()
+    re, n_crit, x_trip = (torch.tensor(c, device=dev)
+                          for c in zip(*FLAT_PLATE))
+    return s, torch.ones_like(s), s, 1.0 / re, n_crit, x_trip
+
+
+def _airfoil_sides(op, coupled, inviscid):
+    """NACA 2412's two sides at alpha 0 and 5 from the port's own inviscid
+    solve on the card: (s, ue, x) of four lanes of 80 stations."""
+    pan = op.pan
+    s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
+    s_le = pan.s[torch.argmin(pan.xp)]
+    rows = []
+    for alpha in (0.0, 5.0):
+        vt = inviscid.solve_inviscid(op, alpha).vt
+        s0 = coupled._find_stagnation(s_mid, vt, s_le)
+        for upper in (True, False):
+            xi, _, ue, x, _ = coupled._side_stations(pan, vt, s0, upper, 80)
+            rows.append((xi, ue, x))
+    return [torch.stack(c).contiguous() for c in zip(*rows)]
+
+
+def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
+    """The march kernel against the plain march, on made-up lanes, on the
+    NACA 2412 sides and on the inputs the main path gives it; then the
+    physics anchors on the kernel alone. Returns (largest abs difference,
+    the free airfoil sides)."""
+    before = mk.march_launches
+    args = _flat_plate_lanes(dev)
+    t0 = time.perf_counter()
+    want = plain.march_side(*args)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    got = mk.march_side(*args)
+    torch.cuda.synchronize()
+    worst = _hold_march(got, want, "flat plate")
+    require(torch.equal(got.x_transition, want.x_transition),
+            f"flat plate x_transition {got.x_transition.tolist()} != "
+            f"{want.x_transition.tolist()}")
+    log(f"[march] flat plate, 5 lanes x 120 stations: kernel = plain "
+        f"(rtol {MARCH_RTOL}, flags and x_transition identical), max abs "
+        f"{worst:.3e}; x_tr {got.x_transition.tolist()}; plain call "
+        f"{t_plain:.2f} s")
+
+    # The main path's own inputs: every march call of a default solve
+    # tripped at trip_x and of a free one, as they reached the kernel.
+    with recording(mk) as calls:
+        coupled.solve_viscous(op, 5.0, 1e6, x_forced_transition=trip_x)
+        n_trip = len(calls["march_side"])
+        n_trip_w = len(calls["march_wake"])
+        coupled.solve_viscous(op, 5.0, 1e6)
+    main_sides = _stack_calls(calls["march_side"][:n_trip], 3)
+    main_wake = _stack_calls(calls["march_wake"], 2)
+
+    # One batch of 80-station lanes: the free NACA 2412 sides, the same
+    # sides tripped at trip_x and the tripped solve's side-pair marches,
+    # each with its rounding ensemble (ue scaled by 1 + k 2^-23). On a
+    # free side a station where the Newton ends on either of two roots
+    # turns on rounding, so the kernel is held to the plain march there
+    # only up to the first station where the plain march's own ensemble
+    # spreads, and its x_transition must be one of the ensemble's. Tripped
+    # near the leading edge, a side has no laminar run to separate: its
+    # ensemble must not spread, and the kernel is held on every station
+    # (a main-path lane's last station may leave the Newton unconverged
+    # where ue falls steeply into the trailing edge, so there the
+    # ensemble may spread at that station alone).
+    sides = _airfoil_sides(op, coupled, inviscid)
+    s, ue, x = sides
+    n_side, m = s.shape
+    n_main = main_sides[0].shape[0]
+    full = lambda v, n: torch.full((n,), v, device=dev)
+    lanes = [torch.cat(c) for c in zip(
+        (s, ue, x, full(1e-6, n_side), full(9.0, n_side),
+         full(1.0, n_side)),
+        (s, ue, x, full(1e-6, n_side), full(9.0, n_side),
+         full(trip_x, n_side)),
+        main_sides)]
+    k = len(ENSEMBLE_K)
+    scale = (1.0 + torch.tensor(ENSEMBLE_K, dtype=torch.float64)
+             * 2.0 ** -23).float().to(dev)
+    batch = [a.repeat_interleave(k, 0) for a in lanes]
+    batch[1] = batch[1] * scale.repeat(len(lanes[0]))[:, None]
+    batch = [a.contiguous() for a in batch]
+    t0 = time.perf_counter()
+    want = plain.march_side(*batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    got = mk.march_side(*batch)
+    torch.cuda.synchronize()
+    nominal = torch.arange(len(lanes[0]), device=dev) * k + k // 2
+    stop, exact = [], []
+    for lane in range(len(lanes[0])):
+        rows = slice(lane * k, (lane + 1) * k)
+        stop.append(ensemble_stop(
+            {f: getattr(want, f)[rows] for f in
+             ("theta", "dstar", "turb", "separated")}))
+        xtrs = set(want.x_transition[rows].tolist())
+        xk = float(got.x_transition[nominal[lane]])
+        require(xk in xtrs, f"lane {lane}: x_tr {xk} not in the plain "
+                f"ensemble's {sorted(xtrs)}")
+        if lane < n_side:
+            side = "upper" if lane % 2 == 0 else "lower"
+            log(f"[march] NACA 2412 side lane {lane} (alpha "
+                f"{5.0 * (lane // 2):g}, {side}): held on stations "
+                f"0..{stop[-1] - 1} of {m}; x_tr kernel "
+                f"{xk!r}, plain {float(want.x_transition[nominal[lane]])!r}, "
+                f"plain ensemble {sorted(xtrs)}")
+        else:
+            exact.append(len(xtrs) == 1)
+    tripped = stop[n_side:2 * n_side]
+    require(all(t == m for t in tripped),
+            f"tripped sides: the plain ensemble spreads at {tripped}")
+    require(min(stop[2 * n_side:]) >= m - 1 and all(exact),
+            f"main-path side lanes: the plain ensemble spreads at "
+            f"{stop[2 * n_side:]}")
+    worst_free = _hold_march(_rows(got, nominal[:n_side]),
+                             _rows(want, nominal[:n_side]),
+                             "NACA 2412 sides", stop[:n_side])
+    det = nominal[n_side:]
+    worst_det = _hold_march(_rows(got, det), _rows(want, det),
+                            "tripped sides and main-path side marches",
+                            stop[n_side:])
+    require(torch.equal(got.x_transition[det], want.x_transition[det]),
+            "tripped x_transition differs")
+    worst = max(worst, worst_free, worst_det)
+    log(f"[march] NACA 2412 sides tripped at {trip_x} (4 lanes) and the "
+        f"tripped default solve's {n_main // 2} side-pair marches "
+        f"({n_main} lanes): plain ensemble spread-free on all {m} stations "
+        f"in {sum(t == m for t in stop[n_side:])} of {n_side + n_main} "
+        f"lanes (else from station {m - 1}); kernel = plain there (rtol "
+        f"{MARCH_RTOL}, flags and x_transition identical), max abs "
+        f"{worst_det:.3e}; x_tr of the tripped sides "
+        f"{got.x_transition[det[:n_side]].tolist()}; plain call of "
+        f"{batch[0].shape[0]} lanes {t_plain:.2f} s")
+
+    # The wake marches, each with its plain ensemble. In an early pass of
+    # the free solve the wake's Hk can sit at its cap (10) and leave it at
+    # a station that turns on rounding, so a wake is held up to the first
+    # station where its plain ensemble spreads; the tripped solve's wakes
+    # must not spread.
+    n_wl, mw = main_wake[0].shape
+    wb = [a.repeat_interleave(k, 0) for a in main_wake]
+    wb[1] = wb[1] * scale.repeat(n_wl)[:, None]
+    wb = [a.contiguous() for a in wb]
+    want_w = plain.march_wake(*wb)
+    got_w = mk.march_wake(*wb)
+    torch.cuda.synchronize()
+    wstop = [ensemble_stop({"theta": want_w[0][lane * k:(lane + 1) * k],
+                            "dstar": want_w[1][lane * k:(lane + 1) * k]},
+                           ("theta", "dstar")) for lane in range(n_wl)]
+    require(all(t == mw for t in wstop[:n_trip_w]),
+            f"tripped solve's wakes: the plain ensemble spreads at "
+            f"{wstop[:n_trip_w]}")
+    worst_w = 0.0
+    for lane, stop_l in enumerate(wstop):
+        row = lane * k + k // 2
+        for a, b, f in zip(got_w, want_w, ("theta", "dstar", "hk")):
+            a, b = a[row, :stop_l], b[row, :stop_l]
+            d = (a - b).abs()
+            worst_w = max(worst_w, float(d.max()))
+            require(bool((d <= MARCH_RTOL * b.abs()).all()),
+                    f"main-path wake lane {lane} {f}: max rel "
+                    f"{float((d / b.abs()).max()):.3e}")
+    worst = max(worst, worst_w)
+    short = {lane: t for lane, t in enumerate(wstop) if t < mw}
+    log(f"[march] the two solves' {n_wl} wake marches ({mw} stations, "
+        f"{n_trip_w} tripped): kernel = plain (rtol {MARCH_RTOL}) on all "
+        f"stations of {n_wl - len(short)} lanes, and of the others "
+        f"(lane: first station where the plain ensemble spreads) up to "
+        f"{short}; max abs {worst_w:.3e}; largest abs difference of all "
+        f"march comparisons {worst:.3e}")
+
+    # Physics anchors (tests/test_viscous.py:24-116) on the kernel alone.
+    fp = mk.march_side(*args)
+    theta_exact = 0.664 / np.sqrt(1e6)
+    require(abs(float(fp.theta[0, -1]) - theta_exact) / theta_exact < 0.02
+            and abs(float(fp.hk[0, -1]) - 2.59) < 0.02, "Blasius anchor")
+    require(0.0028 < float(fp.cf[1, -1]) < 0.0046
+            and 1.25 < float(fp.hk[1, -1]) < 1.55, "tripped plate anchor")
+    for lane, re in ((2, 6e6), (3, 1e7)):
+        require(2.5e6 < re * float(fp.x_transition[lane]) < 3.6e6,
+                f"transition Re_x at Re {re:g}")
+    require(float(fp.x_transition[4]) >= 0.99, "no transition at Re 2e5")
+    sw = torch.linspace(0.01, 1.0, 40, device=dev)
+    got_w = mk.march_wake(sw, torch.full_like(sw, 0.9), 1e-6, 0.004, 0.008,
+                          0.002)
+    xf = torch.linspace(1e-3, 1.0, 256, device=dev)
+    ue_fs = torch.stack([xf ** (b / (2.0 - b)) for b, _ in FALKNER_SKAN])
+    fs = mk.march_side(xf.expand(len(FALKNER_SKAN), -1).contiguous(), ue_fs,
+                       xf.expand(len(FALKNER_SKAN), -1).contiguous(),
+                       1.0 / 5e5, 1e9, 2.0)
+    hk_fs = (fs.dstar / fs.theta.clamp(min=1e-12))[:, 256 // 3: 2 * 256 // 3]
+    for i, (beta, h_ref) in enumerate(FALKNER_SKAN):
+        h = float(hk_fs[i].median())
+        require(abs(h - h_ref) / h_ref < 0.01, f"Falkner-Skan beta {beta}")
+    require(abs(float(got_w[0][-1]) - 0.004) <= 1e-3 * 0.004
+            and float(got_w[2][-1]) < 1.3, "wake anchor")
+    log(f"[march] physics on the kernel: Blasius theta "
+        f"{float(fp.theta[0, -1]):.6e} (exact {theta_exact:.6e}), Re_x_tr "
+        f"{6e6 * float(fp.x_transition[2]):.4g} and "
+        f"{1e7 * float(fp.x_transition[3]):.4g}, Falkner-Skan H "
+        f"{[round(float(h.median()), 4) for h in hk_fs]}, wake theta "
+        f"{float(got_w[0][-1]):.6e}")
+    require(mk.march_launches > before, "march launch counter did not move")
+    return worst, sides
+
+
+def _viscous_record(r) -> dict:
+    return {"cl": float(r.cl), "cd": float(r.cd), "cdp": float(r.cdp),
+            "cm": float(r.cm), "converged": bool(r.converged),
+            "xtr_upper": float(r.upper.x_transition),
+            "xtr_lower": float(r.lower.x_transition),
+            "sep_fraction": float(r.sep_fraction)}
+
+
+def phase_viscous(goldens, ops, coupled, mk):
+    """The main path of this slice: default ``solve_viscous`` at the golden
+    points, free and tripped; returns ({(section, alpha): free result},
+    the march launches of the run)."""
+    mk.march_launches = 0
+    results = {}
+    points = [(g, {}, g["ensemble"]) for g in goldens["viscous"]]
+    # Tripped near the leading edge the reference is no knife edge: held
+    # to its nominal run, ``converged`` equal.
+    points += [(g, {"x_forced_transition": goldens["trip_x"]},
+                {**{f: [g[f], g[f]] for f in VISCOUS_BARS},
+                 "converged": [g["converged"]]})
+               for g in goldens["tripped"]]
+    for g, kw, ens in points:
+        before = mk.march_launches
+        t0 = time.perf_counter()
+        r = coupled.solve_viscous(ops[g["naca"]], g["alpha"], g["re"], **kw)
+        rec = _viscous_record(r)
+        secs = time.perf_counter() - t0
+        if not kw:
+            results[g["naca"], g["alpha"]] = r
+        n = mk.march_launches - before
+        fails = []
+        for f, (abs_bar, rel_bar) in VISCOUS_BARS.items():
+            lo, hi = ens[f]
+            if not (lo - abs_bar - rel_bar * abs(lo) <= rec[f]
+                    <= hi + abs_bar + rel_bar * abs(hi)):
+                fails.append(f"{f} {rec[f]!r} outside [{lo}, {hi}]")
+        if rec["converged"] not in ens["converged"]:
+            fails.append(f"converged {rec['converged']}")
+        if g["alpha"] >= 16.0 and rec["converged"]:
+            fails.append("alpha 16 converged")
+        trip = f", tripped at {kw['x_forced_transition']}" if kw else ""
+        log(f"[viscous] NACA {g['naca']} alpha={g['alpha']:g} Re={g['re']:g}"
+            f"{trip}: {json.dumps(rec)}; golden "
+            f"{json.dumps({f: g[f] for f in rec})}; held to "
+            f"{json.dumps(ens)}; {n} march launches, {secs:.3f} s "
+            f"{'ok' if not fails else 'FAIL ' + str(fails)}")
+        require(not fails, f"viscous NACA {g['naca']} alpha {g['alpha']}"
+                f"{trip}: {fails}")
+        require(n == 50, f"{n} march launches, want 2 x (24 + 1)")
+    return results, mk.march_launches
+
+
+def phase_viscous_anchors(results, ops, coupled, inviscid, mk):
+    """The slow-tier anchors of ``tests/test_viscous.py:131-196`` on the
+    card, from the viscous phase's solves and three more (Re trend,
+    forced transition)."""
+    r0, r5 = results["2412", 0.0], results["2412", 5.0]
+    z, p, m = (results["0012", a] for a in (0.0, 4.0, -4.0))
+    f = float
+    require(bool(r0.converged) and abs(f(r0.cl) - 0.24) < 0.04
+            and 0.0050 < f(r0.cd) < 0.0080
+            and 0.45 < f(r0.upper.x_transition) < 0.75, "2412 alpha 0 anchor")
+    require(abs(f(r5.cl) - 0.755) < 0.08 and 0.0050 < f(r5.cd) < 0.0105
+            and 0.15 < f(r5.upper.x_transition) < 0.45, "2412 alpha 5 anchor")
+    cl_inv = f(inviscid.solve_inviscid(ops["2412"], 5.0).cl)
+    require(f(r5.cl) < cl_inv, "viscous CL must be below inviscid")
+    require(abs(f(p.cl) + f(m.cl)) < 0.03 and abs(f(z.cl)) < 0.01
+            and 0.0045 < f(z.cd) < 0.0080, "symmetric 0012 anchor")
+    require(not bool(results["0012", 16.0].converged),
+            "0012 alpha 16 must not converge")
+    for side in (r5.upper, r5.lower):
+        require(bool((side.theta > 0).all())
+                and bool((side.dstar >= side.theta * 0.99).all()),
+                "2412 alpha 5 boundary-layer sanity")
+    require(f(r5.upper.x_transition) < f(r5.lower.x_transition),
+            "upper transition must lead at alpha 5")
+    before = mk.march_launches
+    cd_lo = f(coupled.solve_viscous(ops["0012"], 0.0, 5e5).cd)
+    cd_hi = f(coupled.solve_viscous(ops["0012"], 0.0, 5e6).cd)
+    trip = coupled.solve_viscous(ops["0012"], 0.0, 1e6,
+                                 x_forced_transition=0.1)
+    require(mk.march_launches - before == 150,
+            f"{mk.march_launches - before} march launches for 3 solves")
+    require(cd_hi < cd_lo, f"CD must fall with Re: {cd_lo} -> {cd_hi}")
+    require(f(trip.upper.x_transition) < 0.2 and f(trip.cd) > f(z.cd),
+            "forced transition anchor")
+    log(f"[viscous] slow-tier anchors hold: 2412 CL {f(r0.cl):.4f} / "
+        f"{f(r5.cl):.4f} (inviscid {cl_inv:.4f} at alpha 5), 0012 CL(+4) + "
+        f"CL(-4) {f(p.cl) + f(m.cl):.2e}, CD(Re 5e5) {cd_lo:.5f} > "
+        f"CD(5e6) {cd_hi:.5f}, tripped at 0.1: x_tr "
+        f"{f(trip.upper.x_transition):.4f}, CD {f(trip.cd):.5f} > "
+        f"{f(z.cd):.5f}")
+
+
+def _median_s(fn, n: int = 10) -> float:
+    t = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return statistics.median(t)
+
+
+def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides):
+    """Default solve and its split; one side-pair march at 80 stations with
+    the kernel and the plain march. Returns (kernel ms, plain ms)."""
+    op = ops["2412"]
+    pan = op.pan
+    coupled.solve_viscous(op, 5.0, 1e6)            # warm
+    t_op = _median_s(lambda: inviscid.build_operator(pan))
+    t_wake = _median_s(lambda: wake.build_wake_operator(op, 5.0, n_wake=24))
+    t_solve = _median_s(lambda: coupled.solve_viscous(op, 5.0, 1e6))
+    t_one = _median_s(lambda: coupled.solve_viscous(op, 5.0, 1e6,
+                                                    coupling_iters=1))
+    t_pass = (t_solve - t_one) / 23.0
+    log(f"[viscous speed] NACA 2412 alpha 5 Re 1e6, default solve_viscous "
+        f"(160 panels, 80/24/24), median of 10, synchronised: "
+        f"{t_solve * 1e3:.3f} ms; build_operator {t_op * 1e3:.3f} ms; "
+        f"build_wake_operator {t_wake * 1e3:.3f} ms; one coupling pass "
+        f"{t_pass * 1e3:.3f} ms (from the 24- and 1-pass solves, "
+        f"{t_one * 1e3:.3f} ms) ({card})")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        coupled.solve_viscous(op, 5.0, 1e6)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_us = {"march_side": 0.0, "march_wake": 0.0, "all": 0.0}
+    for e in events:
+        us = getattr(e, "device_time_total", 0.0)
+        dev_us["all"] += us
+        for name in ("march_side", "march_wake"):
+            if f"{name}_kernel" in e.key:
+                dev_us[name] += us
+    log(f"[viscous speed] profiled default solve: "
+        f"{sum(e.count for e in events)} device operations, "
+        f"{dev_us['all'] / 1e3:.3f} ms of device time, of which "
+        f"march_side_kernel {dev_us['march_side'] / 1e3:.3f} ms and "
+        f"march_wake_kernel {dev_us['march_wake'] / 1e3:.3f} ms; device "
+        f"busy {dev_us['all'] / 1e3 / (t_solve * 1e3):.1%} of the median "
+        f"solve's wall time ({card})")
+
+    s, ue, x = (a[2:].contiguous() for a in sides)    # alpha 5 side pair
+    k_ms = cuda_ms(lambda: mk.march_side(s, ue, x, 1e-6), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.march_side(s, ue, x, 1e-6)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # The plain march issues the same operations at every station, so the
+    # profiler traces its first PROFILED_INTERVALS intervals only (a whole
+    # call is ~2 M device operations).
+    cut = [a[:, :PROFILED_INTERVALS + 1].contiguous() for a in (s, ue, x)]
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        plain.march_side(*cut, 1e-6)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    n_dev = sum(e.count for e in events)
+    dev_us = sum(getattr(e, "device_time_total", 0.0) for e in events)
+    per = n_dev / PROFILED_INTERVALS
+    log(f"[viscous speed] one side-pair march, 2 lanes x 80 stations: "
+        f"kernel {k_ms:.4f} ms (CUDA events, mean of 50); plain {plain_ms:.1f}"
+        f" ms (one call, host clock, synchronised); profiled plain march of "
+        f"{PROFILED_INTERVALS} intervals: {n_dev} device operations "
+        f"({per:.0f} a station interval, so {per * 79:.0f} for the 79 of the "
+        f"call), {dev_us / 1e3:.2f} ms of device time; profiling took "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    return k_ms, plain_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -455,6 +1013,9 @@ def main() -> int:
     from airfoil_tpu_torch.lbm import core, diagnostics, kernel, masks
     from airfoil_tpu_torch.lbm.bench import bench_mlups
     from airfoil_tpu_torch.lbm.runner import WindTunnel
+    from airfoil_tpu_torch import inviscid, paneling
+    from airfoil_tpu_torch.viscous import coupled, march, wake
+    from airfoil_tpu_torch.viscous import kernel as march_kernel
 
     dev = resolve_device("cuda")
     card = card_line()
@@ -462,7 +1023,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
-    k = phase_build(cuda_build, kernel)
+    k = phase_build(cuda_build, kernel, march_kernel)
     max_abs = {"lbm_steps": phase_kernel(dev, kernel, core, masks, LBMConfig),
                "lbm_steps_tiled": phase_tiled(dev, kernel, core, masks,
                                               LBMConfig, k)}
@@ -474,6 +1035,19 @@ def main() -> int:
         LBMConfig().steps_per_frame)
     times = phase_speed(dev, card, kernel, core, diagnostics, masks,
                         LBMConfig, bench_mlups)
+
+    goldens = load_goldens()
+    ops = {code: naca_operator(code, dev, paneling, inviscid)
+           for code in ("0012", "2412", "4412")}
+    phase_inviscid(goldens, ops, inviscid)
+    max_abs["bl_march"], sides = phase_march(dev, march_kernel, march,
+                                             coupled, inviscid, ops["2412"],
+                                             goldens["trip_x"])
+    results, launches["bl_march"] = phase_viscous(goldens, ops, coupled,
+                                                  march_kernel)
+    phase_viscous_anchors(results, ops, coupled, inviscid, march_kernel)
+    times["bl_march"] = phase_viscous_speed(card, ops, inviscid, coupled,
+                                            wake, march_kernel, march, sides)
 
     jax_loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     require(not jax_loaded, f"jax was imported: {jax_loaded[:5]}")

@@ -16,8 +16,8 @@ import uuid
 import numpy as np
 import torch
 
-from airfoil_tpu import config
-from airfoil_tpu.geometry import (
+from airfoil_tpu_torch import config
+from airfoil_tpu_torch.geometry import (
     AirfoilParseError,
     is_multi_element,
     parse_dat_text,

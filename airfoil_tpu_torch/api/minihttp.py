@@ -4,7 +4,8 @@ Port of ``airfoil_tpu/api/minihttp.py`` on the standard library's
 ``ThreadingHTTPServer``, with the same routes, per-IP rate limiter and
 multipart/form-data parser. It compiles nothing at start-up. The routes
 whose solvers are not ported yet (``/upload_airfoil/``, ``/polar/``,
-``/batch/`` and ``/stats``) answer 501; they never reach ``airfoil_tpu``.
+``/batch/`` and ``/stats``) answer 501. The page at ``/app`` is the port's
+byte copy of the reference's ``ui/static_app.html``.
 
 Run: ``python -m airfoil_tpu_torch.api.minihttp`` (port from ``$PORT``,
 device from ``$AIRFOIL_TPU_TORCH_DEVICE``, default ``cuda``).
@@ -22,8 +23,7 @@ from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
-import airfoil_tpu
-from airfoil_tpu import config
+from airfoil_tpu_torch import config
 from airfoil_tpu_torch.api import handlers
 from airfoil_tpu_torch.api.handlers import ApiError, LBMSessions
 from airfoil_tpu_torch.device import resolve_device
@@ -32,7 +32,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["serve", "make_server", "NOT_PORTED"]
 
-_STATIC_APP = os.path.join(os.path.dirname(airfoil_tpu.__file__), "ui",
+_STATIC_APP = os.path.join(os.path.dirname(os.path.dirname(__file__)), "ui",
                            "static_app.html")
 NOT_PORTED = ("/upload_airfoil/", "/polar/", "/batch/", "/stats")
 

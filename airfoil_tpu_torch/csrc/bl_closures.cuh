@@ -1,7 +1,9 @@
 // Integral boundary-layer closures for Hopper (sm_90a), templated on the
-// scalar type: `float`, or `D3`, a forward-mode dual number carrying three
-// tangents, so one evaluation of a residual on D3 gives its value and its
-// Jacobian in three unknowns (the forward mode of jax.jacfwd).
+// scalar type: `float`, or `D1`, a forward-mode dual number carrying one
+// tangent. Evaluating a residual on D1 seeded in unknown k gives its value
+// and its derivative in unknown k: one column of the Jacobian (the forward
+// mode of jax.jacfwd, one direction per evaluation). The march kernel runs
+// the three columns on three threads of a warp.
 //
 // Port of airfoil_tpu/viscous/closures.py; the plain torch version is
 // airfoil_tpu_torch/viscous/closures.py, evaluated there on tensors or on
@@ -16,6 +18,9 @@
 //   - x**2 and x**3 are products (jnp's integer_pow, torch's pow special
 //     cases), other powers powf;
 //   - jnp.log10(x) is log(x) * 0.4342944920063019.
+// A D1 tangent is the same expression as the tangent of the same direction
+// in a dual with three tangents, so the Jacobian does not depend on how
+// many columns one evaluation carries.
 //
 // Shared by the march kernel (bl_march.cu) and meant for the later Newton
 // solver's kernel. cuda_build counts every csrc/*.cuh as a dependency of
@@ -26,101 +31,85 @@
 
 namespace bl {
 
-struct D3 {
-  float v;
-  float t[3];
+struct D1 {
+  float v;  // value
+  float t;  // tangent in the seeded direction
 };
 
 __device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(const D3& x) { return x.v; }
+__device__ __forceinline__ float val(const D1& x) { return x.v; }
 
-__device__ __forceinline__ D3 dual(float v, float t0, float t1, float t2) {
-  D3 r;
-  r.v = v;
-  r.t[0] = t0;
-  r.t[1] = t1;
-  r.t[2] = t2;
-  return r;
-}
+__device__ __forceinline__ D1 dual(float v, float t) { return D1{v, t}; }
 
 template <class T>
 __device__ __forceinline__ T constant(float c);
 template <>
 __device__ __forceinline__ float constant<float>(float c) { return c; }
 template <>
-__device__ __forceinline__ D3 constant<D3>(float c) {
-  return dual(c, 0.0f, 0.0f, 0.0f);
-}
+__device__ __forceinline__ D1 constant<D1>(float c) { return dual(c, 0.0f); }
 
-// ── D3 arithmetic (the rules of numerics.Dual) ─────────────────────────────
-__device__ __forceinline__ D3 operator-(const D3& a) {
-  return dual(-a.v, -a.t[0], -a.t[1], -a.t[2]);
+// ── D1 arithmetic (the rules of numerics.Dual) ─────────────────────────────
+__device__ __forceinline__ D1 operator-(const D1& a) { return dual(-a.v, -a.t); }
+__device__ __forceinline__ D1 operator+(const D1& a, const D1& b) {
+  return dual(a.v + b.v, a.t + b.t);
 }
-__device__ __forceinline__ D3 operator+(const D3& a, const D3& b) {
-  return dual(a.v + b.v, a.t[0] + b.t[0], a.t[1] + b.t[1], a.t[2] + b.t[2]);
+__device__ __forceinline__ D1 operator+(const D1& a, float c) {
+  return dual(a.v + c, a.t);
 }
-__device__ __forceinline__ D3 operator+(const D3& a, float c) {
-  return dual(a.v + c, a.t[0], a.t[1], a.t[2]);
+__device__ __forceinline__ D1 operator+(float c, const D1& a) {
+  return dual(a.v + c, a.t);
 }
-__device__ __forceinline__ D3 operator+(float c, const D3& a) {
-  return dual(a.v + c, a.t[0], a.t[1], a.t[2]);
+__device__ __forceinline__ D1 operator-(const D1& a, const D1& b) {
+  return dual(a.v - b.v, a.t + -b.t);
 }
-__device__ __forceinline__ D3 operator-(const D3& a, const D3& b) {
-  return dual(a.v - b.v, a.t[0] + -b.t[0], a.t[1] + -b.t[1],
-              a.t[2] + -b.t[2]);
+__device__ __forceinline__ D1 operator-(const D1& a, float c) {
+  return dual(a.v - c, a.t);
 }
-__device__ __forceinline__ D3 operator-(const D3& a, float c) {
-  return dual(a.v - c, a.t[0], a.t[1], a.t[2]);
+__device__ __forceinline__ D1 operator-(float c, const D1& a) {
+  return dual(c - a.v, -a.t);
 }
-__device__ __forceinline__ D3 operator-(float c, const D3& a) {
-  return dual(c - a.v, -a.t[0], -a.t[1], -a.t[2]);
+__device__ __forceinline__ D1 operator*(const D1& a, const D1& b) {
+  return dual(a.v * b.v, a.t * b.v + b.t * a.v);
 }
-__device__ __forceinline__ D3 operator*(const D3& a, const D3& b) {
-  return dual(a.v * b.v, a.t[0] * b.v + b.t[0] * a.v,
-              a.t[1] * b.v + b.t[1] * a.v, a.t[2] * b.v + b.t[2] * a.v);
+__device__ __forceinline__ D1 operator*(const D1& a, float c) {
+  return dual(a.v * c, a.t * c);
 }
-__device__ __forceinline__ D3 operator*(const D3& a, float c) {
-  return dual(a.v * c, a.t[0] * c, a.t[1] * c, a.t[2] * c);
-}
-__device__ __forceinline__ D3 operator*(float c, const D3& a) {
-  return a * c;
-}
-__device__ __forceinline__ D3 operator/(const D3& a, const D3& b) {
+__device__ __forceinline__ D1 operator*(float c, const D1& a) { return a * c; }
+__device__ __forceinline__ D1 operator/(const D1& a, const D1& b) {
   const float out = a.v / b.v;
   const float m = -out;
-  return dual(out, (a.t[0] + b.t[0] * m) / b.v, (a.t[1] + b.t[1] * m) / b.v,
-              (a.t[2] + b.t[2] * m) / b.v);
+  return dual(out, (a.t + b.t * m) / b.v);
 }
-__device__ __forceinline__ D3 operator/(const D3& a, float c) {
-  return dual(a.v / c, a.t[0] / c, a.t[1] / c, a.t[2] / c);
+__device__ __forceinline__ D1 operator/(const D1& a, float c) {
+  return dual(a.v / c, a.t / c);
 }
-__device__ __forceinline__ D3 operator/(float c, const D3& b) {
+__device__ __forceinline__ D1 operator/(float c, const D1& b) {
   const float out = c / b.v;
   const float m = -out;
-  return dual(out, b.t[0] * m / b.v, b.t[1] * m / b.v, b.t[2] * m / b.v);
+  return dual(out, b.t * m / b.v);
 }
 
 // ── Elementary functions ───────────────────────────────────────────────────
 __device__ __forceinline__ float texp(float x) { return expf(x); }
-__device__ __forceinline__ D3 texp(const D3& x) {
+__device__ __forceinline__ D1 texp(const D1& x) {
   const float e = expf(x.v);
-  return dual(e, x.t[0] * e, x.t[1] * e, x.t[2] * e);
+  return dual(e, x.t * e);
 }
 __device__ __forceinline__ float tlog(float x) { return logf(x); }
-__device__ __forceinline__ D3 tlog(const D3& x) {
-  return dual(logf(x.v), x.t[0] / x.v, x.t[1] / x.v, x.t[2] / x.v);
+__device__ __forceinline__ D1 tlog(const D1& x) {
+  return dual(logf(x.v), x.t / x.v);
 }
 __device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ D3 tsqrt(const D3& x) {
+__device__ __forceinline__ D1 tsqrt(const D1& x) {
   const float s = sqrtf(x.v);
   const float d = 0.5f / s;
-  return dual(s, x.t[0] * d, x.t[1] * d, x.t[2] * d);
+  return dual(s, x.t * d);
 }
 __device__ __forceinline__ float ttanh(float x) { return tanhf(x); }
-__device__ __forceinline__ D3 ttanh(const D3& x) {
+__device__ __forceinline__ D1 ttanh(const D1& x) {
   const float th = tanhf(x.v);
   const float d = 1.0f - th * th;
-  return dual(th, x.t[0] * d, x.t[1] * d, x.t[2] * d);
+  return dual(th, x.t * d);
 }
 template <class T>
 __device__ __forceinline__ T tlog10(const T& x) {
@@ -129,27 +118,26 @@ __device__ __forceinline__ T tlog10(const T& x) {
 
 // x**2, x**3 (products, as torch's and jnp's integer powers), x**p (powf).
 __device__ __forceinline__ float sq(float x) { return x * x; }
-__device__ __forceinline__ D3 sq(const D3& x) {
+__device__ __forceinline__ D1 sq(const D1& x) {
   const float d = x.v * 2.0f;
-  return dual(x.v * x.v, x.t[0] * d, x.t[1] * d, x.t[2] * d);
+  return dual(x.v * x.v, x.t * d);
 }
 __device__ __forceinline__ float cube(float x) { return x * x * x; }
-__device__ __forceinline__ D3 cube(const D3& x) {
+__device__ __forceinline__ D1 cube(const D1& x) {
   const float d = 3.0f * (x.v * x.v);
-  return dual(x.v * x.v * x.v, x.t[0] * d, x.t[1] * d, x.t[2] * d);
+  return dual(x.v * x.v * x.v, x.t * d);
 }
 __device__ __forceinline__ float tpow(float x, float p) { return powf(x, p); }
-__device__ __forceinline__ D3 tpow(const D3& x, float p) {
+__device__ __forceinline__ D1 tpow(const D1& x, float p) {
   const float d = p * powf(x.v, p - 1.0f);
-  return dual(powf(x.v, p), x.t[0] * d, x.t[1] * d, x.t[2] * d);
+  return dual(powf(x.v, p), x.t * d);
 }
 // x**y with both dual (d/dy = log(x) x^y, log(1) at x = 0 as in JAX).
-__device__ __forceinline__ D3 tpow(const D3& x, const D3& y) {
+__device__ __forceinline__ D1 tpow(const D1& x, const D1& y) {
   const float out = powf(x.v, y.v);
   const float dx = y.v * powf(x.v, y.v - 1.0f);
   const float dy = logf(x.v == 0.0f ? 1.0f : x.v) * out;
-  return dual(out, x.t[0] * dx + y.t[0] * dy, x.t[1] * dx + y.t[1] * dy,
-              x.t[2] * dx + y.t[2] * dy);
+  return dual(out, x.t * dx + y.t * dy);
 }
 
 // jnp.maximum / jnp.minimum: NaN if either operand is NaN; the tangent of
@@ -160,25 +148,21 @@ __device__ __forceinline__ float tmax(float a, float b) {
 __device__ __forceinline__ float tmin(float a, float b) {
   return (a != a || b != b) ? NAN : (a < b ? a : b);
 }
-__device__ __forceinline__ D3 pick(bool a_wins, bool b_wins, const D3& a,
-                                   const D3& b, float out) {
-  D3 r;
-  r.v = out;
-  for (int k = 0; k < 3; ++k)
-    r.t[k] = a_wins ? a.t[k] : (b_wins ? b.t[k] : 0.5f * (a.t[k] + b.t[k]));
-  return r;
+__device__ __forceinline__ D1 pick(bool a_wins, bool b_wins, const D1& a,
+                                   const D1& b, float out) {
+  return dual(out, a_wins ? a.t : (b_wins ? b.t : 0.5f * (a.t + b.t)));
 }
-__device__ __forceinline__ D3 tmax(const D3& a, const D3& b) {
+__device__ __forceinline__ D1 tmax(const D1& a, const D1& b) {
   return pick(a.v > b.v, b.v > a.v, a, b, tmax(a.v, b.v));
 }
-__device__ __forceinline__ D3 tmin(const D3& a, const D3& b) {
+__device__ __forceinline__ D1 tmin(const D1& a, const D1& b) {
   return pick(a.v < b.v, b.v < a.v, a, b, tmin(a.v, b.v));
 }
-__device__ __forceinline__ D3 tmax(const D3& a, float c) {
-  return tmax(a, dual(c, 0.0f, 0.0f, 0.0f));
+__device__ __forceinline__ D1 tmax(const D1& a, float c) {
+  return tmax(a, dual(c, 0.0f));
 }
-__device__ __forceinline__ D3 tmin(const D3& a, float c) {
-  return tmin(a, dual(c, 0.0f, 0.0f, 0.0f));
+__device__ __forceinline__ D1 tmin(const D1& a, float c) {
+  return tmin(a, dual(c, 0.0f));
 }
 
 // jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)).
@@ -238,20 +222,32 @@ __device__ T log10_ret_crit(const T& hk) {
          + 0.44f;
 }
 
-// jnp.interp(hk, knots, values) on the six-knot H-modulation table.
+// jnp.interp(hk, knots, values) on the six-knot H-modulation table. The
+// segment's knots are picked by an unrolled compare chain, so the table
+// stays in registers (an array indexed at run time would go to local
+// memory).
 template <class T>
 __device__ T amp_h_mod(const T& hk) {
-  const float xp[6] = {2.55f, 2.90f, 3.20f, 3.60f, 4.20f, 5.20f};
-  const float fp[6] = {1.00f, 0.70f, 0.62f, 0.60f, 0.65f, 0.70f};
+  constexpr float xp[6] = {2.55f, 2.90f, 3.20f, 3.60f, 4.20f, 5.20f};
+  constexpr float fp[6] = {1.00f, 0.70f, 0.62f, 0.60f, 0.65f, 0.70f};
   const float x = val(hk);
-  int i = 0;
-  for (int k = 0; k < 6; ++k) i += (xp[k] <= x) ? 1 : 0;
-  i = i < 1 ? 1 : (i > 5 ? 5 : i);
   // Outside the table the value is clamped and the tangent is 0.
   if (x < xp[0]) return constant<T>(fp[0]);
   if (x > xp[5]) return constant<T>(fp[5]);
-  const float dx = xp[i] - xp[i - 1];
-  return fp[i - 1] + ((hk - xp[i - 1]) / dx) * (fp[i] - fp[i - 1]);
+  // The segment [xp[i-1], xp[i]] with i the number of knots <= x, clamped
+  // to 1..5: the right-hand segment at a knot, as jnp.interp.
+  float x0 = xp[0], x1 = xp[1], f0 = fp[0], f1 = fp[1];
+#pragma unroll
+  for (int k = 2; k < 6; ++k) {
+    if (xp[k - 1] <= x) {
+      x0 = xp[k - 1];
+      x1 = xp[k];
+      f0 = fp[k - 1];
+      f1 = fp[k];
+    }
+  }
+  const float dx = x1 - x0;
+  return f0 + ((hk - x0) / dx) * (f1 - f0);
 }
 
 template <class T>

@@ -16,12 +16,13 @@ import time
 
 import torch
 
-from airfoil_tpu.config import LBMConfig
+from airfoil_tpu_torch.config import LBMConfig
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init, lbm_step
 from airfoil_tpu_torch.lbm.kernel import (lbm_steps, lbm_steps_tiled,
                                           prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import rasterize_airfoil
+from airfoil_tpu_torch.models import naca4
 
 __all__ = ["bench_mlups"]
 
@@ -33,8 +34,6 @@ def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
     """Time ``n_calls`` calls of ``steps_per_call`` fused steps on the
     NACA 2412 lattice at alpha=6, after one warm-up call (which also
     builds the kernel)."""
-    from airfoil_tpu.models import naca4
-
     dev = resolve_device(device)
     on_cuda = dev.type == "cuda"
     kernel = on_cuda if kernel is None else kernel

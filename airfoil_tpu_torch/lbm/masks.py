@@ -1,17 +1,18 @@
 """Airfoil -> lattice solid-mask rasterization (host-side NumPy).
 
-A copy of ``airfoil_tpu/lbm/masks.py``: importing that module loads
-``airfoil_tpu.lbm``, whose package imports JAX. The arithmetic is
-unchanged and tested for exact equality with the reference. Rotate the
-loop about the quarter chord by -alpha, re-panelise to 160 cosine
-arc-length points, and scanline-fill the polygon onto the lattice.
+Port of ``airfoil_tpu/lbm/masks.py``: rotate the loop about the quarter
+chord by -alpha, re-panelise to 160 cosine arc-length points, and
+scanline-fill the polygon onto the lattice. The reference fills row by row
+in Python or through its native C++ library; here every row's crossings
+are computed at once with the same float64 operations, so the mask equals
+the reference's element for element (``tests/test_torch_isolation.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from airfoil_tpu.config import LBMConfig, DEFAULT_LBM
+from airfoil_tpu_torch.config import LBMConfig, DEFAULT_LBM
 
 __all__ = ["rasterize_airfoil", "build_mask"]
 
@@ -37,38 +38,31 @@ def rasterize_airfoil(
     alpha_deg: float,
     cfg: LBMConfig = DEFAULT_LBM,
 ) -> np.ndarray:
-    """Rasterize the rotated loop to a (NY, NX) float32 solid mask.
-
-    Uses the jax-free native C++ scanline path of ``airfoil_tpu.native``
-    when a host compiler is available; pure NumPy otherwise.
-    """
+    """Rasterize the rotated loop to a (NY, NX) float32 solid mask: on each
+    row's centre line, the cells between the 1st and 2nd, 3rd and 4th, ...
+    crossings of the polygon's edges, in x order, are solid."""
     coords = np.asarray(coords, np.float64)
     xp, yp = _panelise(_rotate(coords, alpha_deg))
     nx, ny = cfg.nx, cfg.ny
-
-    from airfoil_tpu.native import raster_mask_native
-
-    native = raster_mask_native(xp, yp, nx, ny,
-                                (cfg.dx0, cfg.dx1, cfg.dy0, cfg.dy1))
-    if native is not None:
-        return native
+    wy = (cfg.dy0 + (np.arange(ny) + 0.5) / ny * (cfg.dy1 - cfg.dy0))[:, None]
+    x1, x2, y1, y2 = xp[:-1], xp[1:], yp[:-1], yp[1:]
+    hit = (y1 > wy) != (y2 > wy)                          # (ny, n - 1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cross = x1 + (x2 - x1) * (wy - y1) / (y2 - y1)
+    cross = np.sort(np.where(hit, cross, np.inf), axis=1)
+    count = hit.sum(axis=1)
+    # Pair k spans crossings 2k and 2k + 1 where both exist.
+    lo, hi = cross[:, 0:-1:2], cross[:, 1::2]
+    pair = 2 * np.arange(lo.shape[1]) + 1 < count[:, None]
+    scale = cfg.dx1 - cfg.dx0
+    ix0 = np.ceil((np.where(pair, lo, 0.0) - cfg.dx0) / scale * nx)
+    ix1 = np.floor((np.where(pair, hi, 0.0) - cfg.dx0) / scale * nx)
+    ix0 = np.maximum(ix0, 0).astype(np.int64)
+    ix1 = np.minimum(ix1, nx - 1).astype(np.int64)
+    rows, ks = np.nonzero(pair & (ix1 >= ix0))
     mask = np.zeros((ny, nx), np.float32)
-    n = len(xp)
-    for iy in range(ny):
-        wy = cfg.dy0 + (iy + 0.5) / ny * (cfg.dy1 - cfg.dy0)
-        crossings = []
-        for i in range(n - 1):
-            y1, y2 = yp[i], yp[i + 1]
-            if (y1 > wy) != (y2 > wy):
-                crossings.append(xp[i] + (xp[i + 1] - xp[i]) * (wy - y1) / (y2 - y1))
-        crossings.sort()
-        for k in range(0, len(crossings) - 1, 2):
-            ix0 = max(0, int(np.ceil((crossings[k] - cfg.dx0)
-                                     / (cfg.dx1 - cfg.dx0) * nx)))
-            ix1 = min(nx - 1, int(np.floor((crossings[k + 1] - cfg.dx0)
-                                           / (cfg.dx1 - cfg.dx0) * nx)))
-            if ix1 >= ix0:
-                mask[iy, ix0:ix1 + 1] = 1.0
+    for iy, a, b in zip(rows, ix0[rows, ks], ix1[rows, ks]):
+        mask[iy, a:b + 1] = 1.0
     return mask
 
 

@@ -15,7 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from airfoil_tpu.config import LBMConfig, DEFAULT_LBM
+from airfoil_tpu_torch.config import LBMConfig, DEFAULT_LBM
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init
 from airfoil_tpu_torch.lbm.diagnostics import forces_and_separation, render_fields

@@ -2,15 +2,17 @@
 
 Counterparts of ``airfoil_tpu/viscous/march.py::march_side`` and
 ``march_wake`` (``lax.scan`` bodies, no Pallas kernel): on a CUDA tensor
-each call is one launch of ``csrc/bl_march.cu`` (one thread per lane,
-all stations and Newton iterations in the launch); on a CPU tensor it runs
-the plain torch march, ``viscous.march``. The library is built at first
-use (see ``cuda_build``) and a failed build or launch raises; there is no
-fallback.
+each call is one launch of ``csrc/bl_march.cu`` (one block per lane, of
+two warps that evaluate the Newton Jacobian's rows side by side, three
+threads of each carrying its columns; all stations and Newton iterations
+in the launch); on a CPU tensor it runs the plain torch march,
+``viscous.march``. The library is built at first use (see ``cuda_build``)
+and a failed build or launch raises; there is no fallback.
 
-``march_launches`` counts the calls that went to the CUDA kernel (side and
-wake launches alike); the CPU path never touches it. Read it as
-``kernel.march_launches`` on the module.
+``march_launches`` counts the ``march_side`` calls that went to the CUDA
+kernel (``march_side_kernel``), ``wake_launches`` the ``march_wake`` ones
+(``march_wake_kernel``); the CPU path touches neither. Read them on the
+module (``kernel.march_launches``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from airfoil_tpu_torch.viscous.march import BLState, _as_lanes, _lanes
 __all__ = ["load", "march_side", "march_wake"]
 
 march_launches = 0
+wake_launches = 0
 _COUNT_LOCK = threading.Lock()
 # Rounding as torch's one-operation-per-kernel arithmetic: no contraction
 # of multiply-adds into FMAs.
@@ -65,15 +68,14 @@ def _check(name: str, arrays: dict, shape) -> None:
         raise ValueError(f"{name}: needs at least one station")
 
 
-def _launch(lib, fn: str, args, device: torch.device) -> None:
-    global march_launches
+def _launch(lib, fn: str, args, device: torch.device, counter: str) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(*args, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed: "
                            f"{lib.bl_error_string(err).decode()}")
     with _COUNT_LOCK:
-        march_launches += 1
+        globals()[counter] += 1
 
 
 def march_side(s, ue, x, nu, n_crit=9.0, x_forced_transition=1.0
@@ -95,7 +97,8 @@ def march_side(s, ue, x, nu, n_crit=9.0, x_forced_transition=1.0
     x_tr = torch.empty(lanes, dtype=DTYPE, device=dev)
     ptrs = [a.data_ptr() for a in (s2, ue2, x2, *params, *floats, *flags,
                                    x_tr)]
-    _launch(load(), "bl_march_side_launch", ptrs + [lanes, m], dev)
+    _launch(load(), "bl_march_side_launch", ptrs + [lanes, m], dev,
+            "march_launches")
     bl = BLState(*floats, *flags, x_transition=x_tr)
     if one:
         bl = BLState(*(a[0] for a in bl))
@@ -116,7 +119,8 @@ def march_wake(s, ue, nu, theta0, dstar0, ctau0):
     params = [_lanes(p, s2) for p in (nu, theta0, dstar0, ctau0)]
     outs = [torch.empty_like(s2) for _ in range(3)]
     ptrs = [a.data_ptr() for a in (s2, ue2, *params, *outs)]
-    _launch(load(), "bl_march_wake_launch", ptrs + [lanes, m], dev)
+    _launch(load(), "bl_march_wake_launch", ptrs + [lanes, m], dev,
+            "wake_launches")
     if one:
         outs = [a[0] for a in outs]
     return tuple(outs)

@@ -8,8 +8,10 @@ line) if any phase fails:
    limit as nvidia-smi reports them;
 2. build   — builds the three CUDA libraries (``lbm_steps``,
    ``lbm_steps_tiled``, ``bl_march``) from ``airfoil_tpu_torch/csrc``
-   afresh, one nvcc each, in parallel, and logs ptxas's registers and
-   spills and the tiled kernel's shared memory per block;
+   afresh, one nvcc each, in parallel, and logs ptxas's registers, stack
+   frames and spills and the tiled kernel's shared memory per block; both
+   march kernels (side and wake) must have a 0-byte stack frame and no
+   spills;
 3. kernel  — ``lbm_steps`` (one step per launch) against the plain torch
    step on the card, NACA 2412 at alpha=6 on 128x32, 384x192, 640x384 and
    2048x1024 after 1, 8 and 64 steps: rtol 1e-5, atol 1e-6;
@@ -49,10 +51,12 @@ viscous solve), held to the JAX package's outputs in
     solve tripped at x 0.05 (the ensemble may spread at the last station
     alone, which is then left out) and all 50 wake marches of that solve
     (whose ensemble must not spread) and of a free one (NACA 2412, alpha
-    5). The free NACA 2412 sides and the free solve's wakes are held up to
-    the first station where the plain march's ensemble spreads, and the
-    sides' x_transition must be one of that ensemble's. Then the physics
-    anchors on the kernel alone;
+    5), each launched at the shape the solve gives it (2 side lanes, 1
+    wake lane) and bit-equal to its lanes of the batch. The free NACA 2412
+    sides and the free solve's wakes are held up to the first station
+    where the plain march's ensemble spreads, and the sides' x_transition
+    must be one of that ensemble's. Then the physics anchors on the
+    kernel alone;
 11. viscous  — ``solve_viscous`` at its defaults (160 panels, 80 stations,
     24 wake stations, 24 passes) for NACA 2412 at alpha 0 and 5 and NACA
     0012 at 0, +-4 and 16, Re 1e6: CL within 0.025, CD within 5 %, Cm
@@ -61,18 +65,29 @@ viscous solve), held to the JAX package's outputs in
     and tripped at x 0.05 (NACA 2412 at alpha 0 and 5, 0012 at 4), where
     the reference is no knife edge, at the same bars around the nominal
     golden run and ``converged`` equal to it; exactly 2 x 25 march
-    launches per solve; then the slow-tier anchors of
+    launches per solve (25 of ``march_side_kernel``, 25 of
+    ``march_wake_kernel``); then the slow-tier anchors of
     ``tests/test_viscous.py`` (three more solves: 0012 at Re 5e5 and 5e6,
     and tripped at x 0.1);
 12. viscous speed — the default solve's wall time, its split and a
     ``torch.profiler`` trace of it (device time of the march kernels and
-    of all operations), and one side-pair march at 80 stations with the
+    of all operations); one side-pair march at 80 stations with the
     kernel and the plain march (its device operations counted by the
-    profiler over its first intervals).
+    profiler over its first intervals); the side kernel at 1 lane (each
+    side), 2, 62 (a 31-point polar's sides) and 1,914 lanes (the march
+    phase's batch), and the wake kernel at 24 stations with its plain
+    march.
+
+Each kernel's bound is the larger of the bytes its call must move (inputs
+read once, outputs written once) over the card's memory rate and the
+operations of its plain version on the same inputs (pointwise torch
+operations times elements, counted by a dispatch mode) over the card's
+float32 rate. No single PyTorch call computes an LBM step or a march, so
+``library_ms`` is null.
 
 The line before last is the card as nvidia-smi names it, the line before
 that the kernel table (JSON), and the last line the result (JSON). JAX is
-never imported.
+never imported, nor anything of ``airfoil_tpu``.
 """
 
 from __future__ import annotations
@@ -81,6 +96,7 @@ import base64
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -111,7 +127,14 @@ KERNELS = {   # name: (source, the TPU code it replaces)
                         "airfoil_tpu/lbm/kernel.py:144"),
     "bl_march": ("airfoil_tpu_torch/csrc/bl_march.cu",
                  "airfoil_tpu/viscous/march.py:157"),  # march_side's scan
+    "bl_march_wake": ("airfoil_tpu_torch/csrc/bl_march.cu",
+                      "airfoil_tpu/viscous/march.py:352"),  # march_wake's
 }
+# One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes
+# per second and float32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+POLAR_ALPHAS = tuple(float(a) for a in range(-10, 21))   # 31 points
 GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_viscous.json")
 N_PANELS = 160
 MARCH_RTOL = 1e-4
@@ -137,23 +160,10 @@ def require(cond: bool, msg: str):
 
 def naca4_coords(m=2, p=4, t=12, n=60) -> np.ndarray:
     """NACA 4-digit loop (open trailing edge, cosine spacing, Selig order
-    TE -> upper -> LE -> lower -> TE); the formula of
-    ``airfoil_tpu.models.naca4``, which made the golden outputs."""
-    m, p, t = m / 100.0, p / 10.0, t / 100.0
-    x = 0.5 * (1.0 - np.cos(np.pi * np.arange(n + 1) / n))
-    yt = 5.0 * t * (0.2969 * np.sqrt(x) - 0.1260 * x - 0.3516 * x ** 2
-                    + 0.2843 * x ** 3 - 0.1015 * x ** 4)
-    yc = np.zeros_like(x)
-    theta = np.zeros_like(x)
-    if m > 0:
-        front = x < p
-        yc = np.where(front, m / p ** 2 * (2 * p * x - x ** 2),
-                      m / (1 - p) ** 2 * ((1 - 2 * p) + 2 * p * x - x ** 2))
-        theta = np.arctan(np.where(front, 2 * m / p ** 2 * (p - x),
-                                   2 * m / (1 - p) ** 2 * (p - x)))
-    upper = np.stack([x - yt * np.sin(theta), yc + yt * np.cos(theta)], 1)
-    lower = np.stack([x + yt * np.sin(theta), yc - yt * np.cos(theta)], 1)
-    return np.concatenate([upper[::-1], lower[1:]])
+    TE -> upper -> LE -> lower -> TE) from the port's ``models.naca4``, the
+    formula that made the golden outputs."""
+    from airfoil_tpu_torch.models import naca4
+    return naca4(m, p, t, n)
 
 
 def noisy_state(core, cfg, dev, rng) -> torch.Tensor:
@@ -197,6 +207,71 @@ def cuda_ms(fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def count_ops(fn, *args, **kwargs) -> int:
+    """Operations of ``fn`` on its inputs: the elements written by every
+    pointwise torch operation it runs, one operation each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    total = 0
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            nonlocal total
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                total += sum(o.numel() for o in tree_leaves(out)
+                             if torch.is_tensor(o))
+            return out
+
+    with Count():
+        fn(*args, **kwargs)
+    return total
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: int, ops: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take to move
+    ``moved_bytes`` and do ``ops`` float32 operations."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_name(mangled: str) -> str:
+    """A mangled kernel name shortened to the function's:
+    ``march_side_kernel``."""
+    m = re.search(r"[A-Za-z_]+_kernel", mangled)
+    return m.group(0) if m else mangled
+
+
+def ptxas_usage(log_text: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    ``nvcc -Xptxas -v`` output (names as ``kernel_name`` gives them)."""
+    usage, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
 # ── phases ──────────────────────────────────────────────────────────────────
 def phase_build(cuda_build, kernel, march_kernel):
     """The three libraries, one nvcc each, started together."""
@@ -212,10 +287,13 @@ def phase_build(cuda_build, kernel, march_kernel):
     for name in loaders:
         path = os.path.join(cuda_build.BUILD_DIR, f"lib{name}.log")
         with open(path) as fh:
-            for line in fh:
-                if "Compiling entry" in line or "registers" in line \
-                        or "spill" in line:
-                    log(f"[build] {name} ptxas: {line.strip()}")
+            for fn, use in ptxas_usage(fh.read()).items():
+                log(f"[build] {name} ptxas: {fn}: {json.dumps(use)}")
+                if name == "bl_march":
+                    require(use.get("stack") == 0
+                            and use.get("spill_stores") == 0
+                            and use.get("spill_loads") == 0,
+                            f"{fn} uses local memory: {use}")
     shape = kernel.tiled_shape()
     log(f"[build] lbm_steps_tiled: {shape['tile_x']}x{shape['tile_y']} tiles, "
         f"{shape['steps']} steps per launch, {shape['smem_bytes']} B of "
@@ -612,6 +690,12 @@ def _rows(bl, rows):
     return type(bl)(*(a[rows] for a in bl))
 
 
+def _same_bits(xs, ys) -> bool:
+    """Equal bit for bit (NaNs included), tensor by tensor."""
+    bits = lambda a: a.view(torch.int32) if a.dtype == torch.float32 else a
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip(xs, ys))
+
+
 def _flat_plate_lanes(dev):
     n = len(FLAT_PLATE)
     s = torch.linspace(0.004, 1.0, 120, device=dev).expand(n, -1).contiguous()
@@ -620,14 +704,15 @@ def _flat_plate_lanes(dev):
     return s, torch.ones_like(s), s, 1.0 / re, n_crit, x_trip
 
 
-def _airfoil_sides(op, coupled, inviscid):
-    """NACA 2412's two sides at alpha 0 and 5 from the port's own inviscid
-    solve on the card: (s, ue, x) of four lanes of 80 stations."""
+def _airfoil_sides(op, coupled, inviscid, alphas=(0.0, 5.0)):
+    """The section's two sides at each of ``alphas`` from the port's own
+    inviscid solve on the card: (s, ue, x) of 2 x len(alphas) lanes of 80
+    stations, upper then lower."""
     pan = op.pan
     s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
     s_le = pan.s[torch.argmin(pan.xp)]
     rows = []
-    for alpha in (0.0, 5.0):
+    for alpha in alphas:
         vt = inviscid.solve_inviscid(op, alpha).vt
         s0 = coupled._find_stagnation(s_mid, vt, s_le)
         for upper in (True, False):
@@ -639,9 +724,9 @@ def _airfoil_sides(op, coupled, inviscid):
 def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
     """The march kernel against the plain march, on made-up lanes, on the
     NACA 2412 sides and on the inputs the main path gives it; then the
-    physics anchors on the kernel alone. Returns (largest abs difference,
-    the free airfoil sides)."""
-    before = mk.march_launches
+    physics anchors on the kernel alone. Returns ({kernel: largest abs
+    difference}, the free airfoil sides, the batch of 1,914 side lanes)."""
+    before, before_w = mk.march_launches, mk.wake_launches
     args = _flat_plate_lanes(dev)
     t0 = time.perf_counter()
     want = plain.march_side(*args)
@@ -732,16 +817,30 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
     worst_free = _hold_march(_rows(got, nominal[:n_side]),
                              _rows(want, nominal[:n_side]),
                              "NACA 2412 sides", stop[:n_side])
+    # The main path's side marches again at their own shape, one launch
+    # of 2 lanes each as the solve makes them: they are held to the plain
+    # march, and the lanes of a launch are independent, so each must also
+    # equal its lanes of the batch bit for bit.
     det = nominal[n_side:]
-    worst_det = _hold_march(_rows(got, det), _rows(want, det),
-                            "tripped sides and main-path side marches",
-                            stop[n_side:])
+    main_rows = nominal[2 * n_side:]
+    own = type(got)(*(torch.cat(f) for f in zip(*(
+        mk.march_side(*c) for c in calls["march_side"][:n_trip]))))
+    require(_same_bits(own, _rows(got, main_rows)),
+            "main-path side marches: a 2-lane launch differs from its "
+            "lanes of the batch")
+    worst_det = max(
+        _hold_march(_rows(got, det[:n_side]), _rows(want, det[:n_side]),
+                    "tripped sides", stop[n_side:2 * n_side]),
+        _hold_march(own, _rows(want, main_rows),
+                    "main-path side marches", stop[2 * n_side:]))
     require(torch.equal(got.x_transition[det], want.x_transition[det]),
             "tripped x_transition differs")
     worst = max(worst, worst_free, worst_det)
+    worst_sides = worst
     log(f"[march] NACA 2412 sides tripped at {trip_x} (4 lanes) and the "
         f"tripped default solve's {n_main // 2} side-pair marches "
-        f"({n_main} lanes): plain ensemble spread-free on all {m} stations "
+        f"({n_main} lanes; each also launched alone at 2 lanes, bit-equal "
+        f"to the batch): plain ensemble spread-free on all {m} stations "
         f"in {sum(t == m for t in stop[n_side:])} of {n_side + n_main} "
         f"lanes (else from station {m - 1}); kernel = plain there (rtol "
         f"{MARCH_RTOL}, flags and x_transition identical), max abs "
@@ -753,7 +852,8 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
     # the free solve the wake's Hk can sit at its cap (10) and leave it at
     # a station that turns on rounding, so a wake is held up to the first
     # station where its plain ensemble spreads; the tripped solve's wakes
-    # must not spread.
+    # must not spread. As the sides, each is held at its own shape (one
+    # launch of 1 lane), which must equal its nominal lane of the batch.
     n_wl, mw = main_wake[0].shape
     wb = [a.repeat_interleave(k, 0) for a in main_wake]
     wb[1] = wb[1] * scale.repeat(n_wl)[:, None]
@@ -767,11 +867,18 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
     require(all(t == mw for t in wstop[:n_trip_w]),
             f"tripped solve's wakes: the plain ensemble spreads at "
             f"{wstop[:n_trip_w]}")
+    own_w = [torch.cat(f) for f in zip(*(
+        [a.reshape(-1, mw) for a in mk.march_wake(*c)]
+        for c in calls["march_wake"]))]
+    w_rows = torch.arange(n_wl, device=dev) * k + k // 2
+    require(_same_bits(own_w, [a[w_rows] for a in got_w]),
+            "main-path wake marches: a 1-lane launch differs from its lane "
+            "of the batch")
     worst_w = 0.0
     for lane, stop_l in enumerate(wstop):
         row = lane * k + k // 2
-        for a, b, f in zip(got_w, want_w, ("theta", "dstar", "hk")):
-            a, b = a[row, :stop_l], b[row, :stop_l]
+        for a, b, f in zip(own_w, want_w, ("theta", "dstar", "hk")):
+            a, b = a[lane, :stop_l], b[row, :stop_l]
             d = (a - b).abs()
             worst_w = max(worst_w, float(d.max()))
             require(bool((d <= MARCH_RTOL * b.abs()).all()),
@@ -780,7 +887,8 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
     worst = max(worst, worst_w)
     short = {lane: t for lane, t in enumerate(wstop) if t < mw}
     log(f"[march] the two solves' {n_wl} wake marches ({mw} stations, "
-        f"{n_trip_w} tripped): kernel = plain (rtol {MARCH_RTOL}) on all "
+        f"{n_trip_w} tripped; each launched alone at 1 lane, bit-equal to "
+        f"the batch): kernel = plain (rtol {MARCH_RTOL}) on all "
         f"stations of {n_wl - len(short)} lanes, and of the others "
         f"(lane: first station where the plain ensemble spreads) up to "
         f"{short}; max abs {worst_w:.3e}; largest abs difference of all "
@@ -817,8 +925,9 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
         f"{1e7 * float(fp.x_transition[3]):.4g}, Falkner-Skan H "
         f"{[round(float(h.median()), 4) for h in hk_fs]}, wake theta "
         f"{float(got_w[0][-1]):.6e}")
-    require(mk.march_launches > before, "march launch counter did not move")
-    return worst, sides
+    require(mk.march_launches > before and mk.wake_launches > before_w,
+            "march launch counters did not move")
+    return {"bl_march": worst_sides, "bl_march_wake": worst_w}, sides, batch
 
 
 def _viscous_record(r) -> dict:
@@ -832,8 +941,9 @@ def _viscous_record(r) -> dict:
 def phase_viscous(goldens, ops, coupled, mk):
     """The main path of this slice: default ``solve_viscous`` at the golden
     points, free and tripped; returns ({(section, alpha): free result},
-    the march launches of the run)."""
+    {kernel: its launches in the run})."""
     mk.march_launches = 0
+    mk.wake_launches = 0
     results = {}
     points = [(g, {}, g["ensemble"]) for g in goldens["viscous"]]
     # Tripped near the leading edge the reference is no knife edge: held
@@ -843,14 +953,16 @@ def phase_viscous(goldens, ops, coupled, mk):
                  "converged": [g["converged"]]})
                for g in goldens["tripped"]]
     for g, kw, ens in points:
-        before = mk.march_launches
+        before = mk.march_launches, mk.wake_launches
         t0 = time.perf_counter()
         r = coupled.solve_viscous(ops[g["naca"]], g["alpha"], g["re"], **kw)
         rec = _viscous_record(r)
         secs = time.perf_counter() - t0
         if not kw:
             results[g["naca"], g["alpha"]] = r
-        n = mk.march_launches - before
+        n_side = mk.march_launches - before[0]
+        n_wake = mk.wake_launches - before[1]
+        n = n_side + n_wake
         fails = []
         for f, (abs_bar, rel_bar) in VISCOUS_BARS.items():
             lo, hi = ens[f]
@@ -869,8 +981,11 @@ def phase_viscous(goldens, ops, coupled, mk):
             f"{'ok' if not fails else 'FAIL ' + str(fails)}")
         require(not fails, f"viscous NACA {g['naca']} alpha {g['alpha']}"
                 f"{trip}: {fails}")
-        require(n == 50, f"{n} march launches, want 2 x (24 + 1)")
-    return results, mk.march_launches
+        require(n_side == 25 and n_wake == 25,
+                f"{n_side} side and {n_wake} wake march launches, want "
+                f"24 + 1 each")
+    return results, {"bl_march": mk.march_launches,
+                     "bl_march_wake": mk.wake_launches}
 
 
 def phase_viscous_anchors(results, ops, coupled, inviscid, mk):
@@ -897,13 +1012,13 @@ def phase_viscous_anchors(results, ops, coupled, inviscid, mk):
                 "2412 alpha 5 boundary-layer sanity")
     require(f(r5.upper.x_transition) < f(r5.lower.x_transition),
             "upper transition must lead at alpha 5")
-    before = mk.march_launches
+    before = mk.march_launches + mk.wake_launches
     cd_lo = f(coupled.solve_viscous(ops["0012"], 0.0, 5e5).cd)
     cd_hi = f(coupled.solve_viscous(ops["0012"], 0.0, 5e6).cd)
     trip = coupled.solve_viscous(ops["0012"], 0.0, 1e6,
                                  x_forced_transition=0.1)
-    require(mk.march_launches - before == 150,
-            f"{mk.march_launches - before} march launches for 3 solves")
+    n = mk.march_launches + mk.wake_launches - before
+    require(n == 150, f"{n} march launches for 3 solves")
     require(cd_hi < cd_lo, f"CD must fall with Re: {cd_lo} -> {cd_hi}")
     require(f(trip.upper.x_transition) < 0.2 and f(trip.cd) > f(z.cd),
             "forced transition anchor")
@@ -926,9 +1041,12 @@ def _median_s(fn, n: int = 10) -> float:
     return statistics.median(t)
 
 
-def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides):
-    """Default solve and its split; one side-pair march at 80 stations with
-    the kernel and the plain march. Returns (kernel ms, plain ms)."""
+def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
+                        batch):
+    """Default solve and its split; one side-pair march at 80 stations and
+    one 24-station wake march with the kernels and the plain march; the
+    side kernel at 1, 2, 62 and 1,914 lanes. Returns ({kernel: (kernel ms,
+    plain ms)}, {kernel: (bound ms, what bounds it)})."""
     op = ops["2412"]
     pan = op.pan
     coupled.solve_viscous(op, 5.0, 1e6)            # warm
@@ -991,7 +1109,88 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides):
         f"({per:.0f} a station interval, so {per * 79:.0f} for the 79 of the "
         f"call), {dev_us / 1e3:.2f} ms of device time; profiling took "
         f"{time.perf_counter() - t0:.1f} s ({card})")
-    return k_ms, plain_ms
+
+    # The side kernel's time against its lane count: one block per lane, so
+    # lanes run side by side until they share the SMs' issue slots.
+    polar = _airfoil_sides(op, coupled, inviscid, POLAR_ALPHAS)
+    cases = {"upper side (1 lane)": [a[2:3] for a in sides] + [1e-6],
+             "lower side (1 lane)": [a[3:4] for a in sides] + [1e-6],
+             "side pair (2 lanes)": [s, ue, x, 1e-6],
+             f"{len(POLAR_ALPHAS)}-point polar's sides "
+             f"({2 * len(POLAR_ALPHAS)} lanes)": polar + [1e-6],
+             f"march phase batch ({batch[0].shape[0]} lanes)": batch}
+    lane_ms = {}
+    for name, args in cases.items():
+        args = [a.contiguous() if torch.is_tensor(a) else a for a in args]
+        lane_ms[name] = cuda_ms(lambda: mk.march_side(*args), 50)
+    log(f"[viscous speed] march_side_kernel at 80 stations (CUDA events, mean "
+        f"of 50): " + "; ".join(f"{n} {t:.4f} ms" for n, t in lane_ms.items())
+        + f"; {2 * len(POLAR_ALPHAS)} lanes / 2 lanes "
+        f"{list(lane_ms.values())[3] / k_ms:.3f} ({card})")
+
+    # The wake march of the default solve's last pass.
+    with recording(mk) as calls:
+        coupled.solve_viscous(op, 5.0, 1e6)
+    w = calls["march_wake"][-1]
+    w_ms = cuda_ms(lambda: mk.march_wake(*w), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.march_wake(*w)
+    torch.cuda.synchronize()
+    w_plain_ms = (time.perf_counter() - t0) * 1e3
+    mw = w[0].shape[-1]
+    log(f"[viscous speed] one wake march, 1 lane x {mw} stations: kernel "
+        f"{w_ms:.4f} ms (CUDA events, mean of 50); plain {w_plain_ms:.1f} ms "
+        f"(one call, host clock) ({card})")
+
+    # Bounds: bytes of the call's inputs and outputs; operations of the
+    # plain march, which does the same at every interval, counted over
+    # PROFILED_INTERVALS of them and scaled to the call's.
+    out = mk.march_side(s, ue, x, 1e-6)
+    n_lanes, m = s.shape
+    side_ops = count_ops(plain.march_side, *cut, 1e-6) \
+        * (m - 1) / PROFILED_INTERVALS
+    side_bound = bound(nbytes(s, ue, x, *out) + 3 * 4 * n_lanes, side_ops)
+    w_out = mk.march_wake(*w)
+    w_cut = [w[0][:PROFILED_INTERVALS + 1], w[1][:PROFILED_INTERVALS + 1],
+             *w[2:]]
+    wake_ops = count_ops(plain.march_wake, *w_cut) * (mw - 1) \
+        / PROFILED_INTERVALS
+    wake_bound = bound(nbytes(*w[:2], *w_out) + 4 * 4, wake_ops)
+    log(f"[viscous speed] bounds: side pair {side_bound[0] * 1e3:.3f} us "
+        f"({side_ops:.4g} operations), wake {wake_bound[0] * 1e3:.3f} us "
+        f"({wake_ops:.4g} operations), set by {side_bound[1]} and "
+        f"{wake_bound[1]}")
+    return ({"bl_march": (k_ms, plain_ms), "bl_march_wake": (w_ms, w_plain_ms)},
+            {"bl_march": side_bound, "bl_march_wake": wake_bound})
+
+
+def phase_mask_speed(dev, card, masks, cfg_cls, WindTunnel):
+    """Host time of the solid mask that ``/lbm/start`` builds at the served
+    384x192 and of a 2048x1024 ``WindTunnel``'s construction, mask
+    included."""
+    coords = naca4_coords()
+    t_served = _median_s(lambda: masks.build_mask(coords, 6.0, cfg_cls()), 20)
+    big = cfg_cls(nx=LARGE[0], ny=LARGE[1])
+    t_big = _median_s(lambda: masks.rasterize_airfoil(coords, 6.0, big), 5)
+    t_tunnel = _median_s(lambda: WindTunnel(coords, cfg=big, device=dev), 3)
+    log(f"[speed] solid mask (numpy scanline, median): 384x192 "
+        f"{t_served * 1e3:.3f} ms, {LARGE[0]}x{LARGE[1]} {t_big * 1e3:.3f} ms; "
+        f"WindTunnel construction at {LARGE[0]}x{LARGE[1]} "
+        f"{t_tunnel * 1e3:.3f} ms ({card})")
+
+
+def lbm_bound(dev, core, masks, cfg_cls, grid) -> tuple[float, str]:
+    """Bound of one ``steps_per_frame``-step LBM call on ``grid``: the
+    lattice read and written once and the mask read once; the operations of
+    the plain step."""
+    cfg = cfg_cls(nx=grid[0], ny=grid[1])
+    solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0, cfg),
+                         device=dev)
+    f = core.equilibrium_init(cfg.ny, cfg.nx, cfg.u0, dev)
+    ops = count_ops(core.lbm_step, f, solid, cfg.u0, cfg.tau,
+                    steps=cfg.steps_per_frame)
+    return bound(2 * nbytes(f) + nbytes(solid), ops)
 
 
 def main() -> int:
@@ -1005,8 +1204,8 @@ def main() -> int:
         print(f"chip_smoke: airfoil_tpu_torch found at {pkg}, not in this "
               f"checkout ({ROOT})", file=sys.stderr)
         return 1
-    from airfoil_tpu.config import LBMConfig
     from airfoil_tpu_torch import cuda_build
+    from airfoil_tpu_torch.config import LBMConfig
     from airfoil_tpu_torch.api.handlers import parse_upload
     from airfoil_tpu_torch.api.minihttp import make_server
     from airfoil_tpu_torch.device import resolve_device
@@ -1035,26 +1234,36 @@ def main() -> int:
         LBMConfig().steps_per_frame)
     times = phase_speed(dev, card, kernel, core, diagnostics, masks,
                         LBMConfig, bench_mlups)
+    phase_mask_speed(dev, card, masks, LBMConfig, WindTunnel)
+    bounds = {"lbm_steps": lbm_bound(dev, core, masks, LBMConfig, (384, 192)),
+              "lbm_steps_tiled": lbm_bound(dev, core, masks, LBMConfig, LARGE)}
 
     goldens = load_goldens()
     ops = {code: naca_operator(code, dev, paneling, inviscid)
            for code in ("0012", "2412", "4412")}
     phase_inviscid(goldens, ops, inviscid)
-    max_abs["bl_march"], sides = phase_march(dev, march_kernel, march,
-                                             coupled, inviscid, ops["2412"],
-                                             goldens["trip_x"])
-    results, launches["bl_march"] = phase_viscous(goldens, ops, coupled,
-                                                  march_kernel)
+    march_abs, sides, batch = phase_march(dev, march_kernel, march, coupled,
+                                          inviscid, ops["2412"],
+                                          goldens["trip_x"])
+    max_abs.update(march_abs)
+    results, march_launches = phase_viscous(goldens, ops, coupled,
+                                            march_kernel)
+    launches.update(march_launches)
     phase_viscous_anchors(results, ops, coupled, inviscid, march_kernel)
-    times["bl_march"] = phase_viscous_speed(card, ops, inviscid, coupled,
-                                            wake, march_kernel, march, sides)
+    march_times, march_bounds = phase_viscous_speed(
+        card, ops, inviscid, coupled, wake, march_kernel, march, sides, batch)
+    times.update(march_times)
+    bounds.update(march_bounds)
 
-    jax_loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-    require(not jax_loaded, f"jax was imported: {jax_loaded[:5]}")
+    refused = [m for m in sys.modules
+               if m.partition(".")[0] in ("jax", "airfoil_tpu")]
+    require(not refused, f"the reference or jax was imported: {refused[:5]}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_abs[name],
-        "ms": times[name][0], "plain_ms": times[name][1]}
+        "ms": times[name][0], "plain_ms": times[name][1],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -223,8 +223,10 @@ def test_wake_matches_jax():
               np.float32(0.002))
     ref = jmarch.march_wake(jnp.asarray(s), jnp.asarray(ue),
                             *(jnp.asarray(v) for v in states))
+    before = kernel.wake_launches
     port = kernel.march_wake(torch.tensor(s), torch.tensor(ue),
                              *(torch.tensor(v) for v in states))
+    assert kernel.wake_launches == before       # CPU: the plain march
     compare(port, ref, rtol=1e-4)
     theta, _, hk = as_numpy(port)
     assert hk[-1] < 1.3

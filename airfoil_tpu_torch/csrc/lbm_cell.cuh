@@ -1,8 +1,9 @@
 // D2Q9 per-cell arithmetic shared by the two LBM kernels of the port
-// (lbm_steps.cu, one step per launch; lbm_steps_tiled.cu, K steps per
-// launch in shared memory). Both kernels pull the 9 values of a cell, then
-// call lbm_cell(), so for the same pulled values they produce the same
-// bits: the tiled kernel is held to the one-step kernel with max abs 0.
+// (lbm_steps.cu, the whole lattice resident on chip for a call;
+// lbm_steps_tiled.cu, K steps per launch on tiles). Both kernels pull the 9
+// values of a cell from a window in shared memory with pull_window(), then
+// call lbm_cell(), so for the same pulled values they produce the same bits:
+// the tiled kernel is held to the resident one with max abs 0.
 //
 // The arithmetic is airfoil_tpu_torch/lbm/core.py::step_body after the
 // streaming gather: rho, u, the stability clamps, BGK collision, the
@@ -18,6 +19,14 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// The static cell word (lbm/kernel.py::cell_word): bit i (0-8) set where
+// direction i bounces back (the cell itself or its streaming source x - e_i
+// is solid; bit 0 is "own cell is solid"), bit 9 the outlet column, bit 10
+// the edge equilibrium (first column, first and last row; the outlet wins
+// at the right-hand corners).
+constexpr unsigned kOutletBit = 1u << 9;
+constexpr unsigned kEdgeBit = 1u << 10;
 
 __host__ __device__ constexpr int ex_of(int i) {
   return (i == 1 || i == 5 || i == 8) ? 1 : (i == 3 || i == 6 || i == 7) ? -1 : 0;
@@ -43,32 +52,22 @@ struct StepParams {
   float inv_tau;
 };
 
-// Per-cell bounce word, bit i set where direction i bounces back (the cell
-// itself or its streaming source x - e_i is solid); bit 0 is "own cell is
-// solid". Computed once per call: the mask does not change between steps.
-__global__ void __launch_bounds__(kThreads)
-bounce_bits_kernel(const float* __restrict__ solid, uint16_t* __restrict__ bits,
-                   int ny, int nx) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= ny * nx) return;
-  const int y = cell / nx;
-  const int x = cell - y * nx;
-  const bool self = solid[cell] > 0.5f;
-  unsigned b = 0;
+// Stream (gather from x - e_i), bounce back, outlet copy: the 9 values that
+// window cell `cell` pulls from `src` ([9][plane] floats, rows `pitch`
+// apart) under its cell word `b`. The outlet copies its left neighbour's
+// pre-stream values; a bounced direction takes the cell's own opposite one.
+__device__ __forceinline__ void pull_window(float (&fin)[9], const float* src,
+                                            int plane, int cell, int pitch,
+                                            unsigned b) {
+  const bool is_outlet = b & kOutletBit;
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
-    const int src = wrap(y - ey_of(i), ny) * nx + wrap(x - ex_of(i), nx);
-    if (self || solid[src] > 0.5f) b |= 1u << i;
+    // Selects, not branches: one shared-memory read per direction.
+    int from = ((b >> i) & 1u) ? opp_of(i) * plane + cell
+                               : i * plane + cell - ey_of(i) * pitch - ex_of(i);
+    from = is_outlet ? i * plane + cell - 1 : from;
+    fin[i] = src[from];
   }
-  bits[cell] = static_cast<uint16_t>(b);
-}
-
-// Boundary roles from global coordinates: the last column is the outlet
-// (it wins at the right-hand corners); the first column, first row and
-// last row take the edge equilibrium.
-__device__ __forceinline__ bool is_outlet_at(int x, int nx) { return x == nx - 1; }
-__device__ __forceinline__ bool is_edge_eq_at(int y, int x, int ny, int nx) {
-  return (x == 0 || y == 0 || y == ny - 1) && x != nx - 1;
 }
 
 // Everything after the pull: `fin` holds the 9 streamed values of one cell
@@ -97,18 +96,21 @@ __device__ __forceinline__ void lbm_cell(float (&fin)[9], bool is_solid,
   const bool apply_edge = is_edge_eq && !is_solid;
 #pragma unroll
   for (int i = 0; i < 9; ++i) {
-    float v;
-    if (apply_edge) {
-      v = p.feq_in[i];
-    } else if (skip_collide) {
-      v = fin[i];
-    } else {
-      const float eu = (float)ex_of(i) * uxc + (float)ey_of(i) * uyc;
-      const float feq = w_of(i) * rho_c * (1.0f + 3.0f * eu + 4.5f * eu * eu - 1.5f * uu);
-      v = fin[i] - (fin[i] - feq) * p.inv_tau;
-    }
-    fin[i] = v;
+    // Every cell computes the collision and then selects, so a warp whose
+    // cells differ in role does not branch.
+    const float eu = (float)ex_of(i) * uxc + (float)ey_of(i) * uyc;
+    const float feq = w_of(i) * rho_c * (1.0f + 3.0f * eu + 4.5f * eu * eu - 1.5f * uu);
+    const float collided = fin[i] - (fin[i] - feq) * p.inv_tau;
+    fin[i] = apply_edge ? p.feq_in[i] : (skip_collide ? fin[i] : collided);
   }
+}
+
+// Pull, then step, one window cell under its cell word.
+__device__ __forceinline__ void step_cell(float (&fin)[9], const float* src,
+                                          int plane, int cell, int pitch,
+                                          unsigned b, const StepParams& p) {
+  pull_window(fin, src, plane, cell, pitch, b);
+  lbm_cell(fin, b & 1u, b & kOutletBit, b & kEdgeBit, p);
 }
 
 }  // namespace

@@ -7,7 +7,8 @@ from airfoil_tpu_torch.lbm.core import (
 )
 from airfoil_tpu_torch.lbm.masks import rasterize_airfoil, build_mask
 from airfoil_tpu_torch.lbm.diagnostics import forces_and_separation, render_fields
-from airfoil_tpu_torch.lbm.kernel import lbm_steps, lbm_steps_tiled, prefers_tiled
+from airfoil_tpu_torch.lbm.kernel import (cell_word, lbm_steps, lbm_steps_tiled,
+                                          prefers_tiled)
 from airfoil_tpu_torch.lbm.runner import LBMState, WindTunnel
 from airfoil_tpu_torch.lbm.bench import bench_mlups
 
@@ -16,7 +17,7 @@ __all__ = [
     "equilibrium_init", "lbm_step",
     "rasterize_airfoil", "build_mask",
     "forces_and_separation", "render_fields",
-    "lbm_steps", "lbm_steps_tiled", "prefers_tiled",
+    "cell_word", "lbm_steps", "lbm_steps_tiled", "prefers_tiled",
     "LBMState", "WindTunnel",
     "bench_mlups",
 ]

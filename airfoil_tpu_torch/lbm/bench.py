@@ -5,9 +5,11 @@ per call. ``kernel`` says whether a CUDA kernel or the plain torch step
 (``core.lbm_step``) is timed; it defaults to a kernel on a CUDA device and
 to the plain step on the CPU, and asking for a kernel on the CPU raises.
 ``tiled`` says which kernel: ``lbm_steps_tiled`` or ``lbm_steps``; left
-``None`` it follows the wind tunnel's rule (``prefers_tiled`` against the
-card's L2 size). The result reports what ran. The loop is
-timed on the host clock between two ``torch.cuda.synchronize()`` calls.
+``None`` it follows the wind tunnel's rule (``prefers_tiled``: the tiled
+kernel where ``lbm_steps`` cannot hold the lattice). The cell word is built
+once, before the timed loop, as the wind tunnel builds it once per mask.
+The result reports what ran. The loop is timed on the host clock between
+two ``torch.cuda.synchronize()`` calls.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from airfoil_tpu_torch.config import LBMConfig
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init, lbm_step
-from airfoil_tpu_torch.lbm.kernel import (lbm_steps, lbm_steps_tiled,
+from airfoil_tpu_torch.lbm.kernel import (cell_word, device_limits,
+                                          lbm_steps, lbm_steps_tiled,
                                           prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import rasterize_airfoil
 from airfoil_tpu_torch.models import naca4
@@ -40,8 +43,7 @@ def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
     if kernel and not on_cuda:
         raise ValueError("the CUDA kernels run only on a CUDA device")
     if tiled is None:
-        tiled = kernel and prefers_tiled(
-            ny, nx, torch.cuda.get_device_properties(dev).L2_cache_size)
+        tiled = kernel and prefers_tiled(ny, nx, *device_limits(dev))
     if tiled and not kernel:
         raise ValueError("tiled names a CUDA kernel; the plain step has none")
 
@@ -49,7 +51,14 @@ def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
     mask = torch.as_tensor(rasterize_airfoil(naca4(2, 4, 12, 50), 6.0, cfg),
                            dtype=DTYPE).to(dev)
     f = equilibrium_init(ny, nx, cfg.u0, dev)
-    step = (lbm_steps_tiled if tiled else lbm_steps) if kernel else lbm_step
+    if kernel:
+        word = cell_word(mask)
+        kern = lbm_steps_tiled if tiled else lbm_steps
+
+        def step(f, *args, **kwargs):
+            return kern(f, *args, word=word, **kwargs)
+    else:
+        step = lbm_step
 
     def sync():
         if on_cuda:

@@ -26,7 +26,8 @@ from airfoil_tpu_torch.device import DTYPE
 __all__ = [
     "D2Q9_E", "D2Q9_W", "D2Q9_OPP",
     "equilibrium", "equilibrium_init", "macro_fields",
-    "boundary_masks", "bounce_masks", "edge_equilibrium", "inverse_tau",
+    "boundary_masks", "bounce_masks", "cell_word", "edge_equilibrium",
+    "inverse_tau",
     "step_body", "lbm_step",
 ]
 
@@ -98,6 +99,25 @@ def bounce_masks(solid):
         else:
             out.append((_roll2(solid, ey, ex) > 0.5) | is_solid)
     return tuple(out)
+
+
+OUTLET_BIT = 9
+EDGE_BIT = 10
+
+
+def cell_word(solid):
+    """The static cell word of a (NY, NX) mask as (NY, NX) uint16: bit i
+    (0-8) is ``bounce_masks(solid)[i]``, bit 9 the outlet and bit 10 the
+    edge equilibrium of ``boundary_masks``. It is what the CUDA kernels
+    read per cell; ``lbm/kernel.py::cell_word`` builds it on the card."""
+    bits = torch.zeros(solid.shape, dtype=torch.int32, device=solid.device)
+    for i, bounce in enumerate(bounce_masks(solid)):
+        bits |= bounce.to(torch.int32) << i
+    is_outlet, is_edge_eq = boundary_masks(solid.shape[0], solid.shape[1],
+                                           solid.device)
+    bits |= is_outlet.to(torch.int32) << OUTLET_BIT
+    bits |= is_edge_eq.to(torch.int32) << EDGE_BIT
+    return bits.to(torch.uint16)
 
 
 def edge_equilibrium(u0: float) -> list[float]:

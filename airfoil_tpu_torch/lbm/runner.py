@@ -1,11 +1,13 @@
 """Server-side wind tunnel: state management and per-frame stepping.
 
 Port of ``airfoil_tpu/lbm/runner.py`` with an explicit ``device``. A frame
-is one ``lbm_steps`` or ``lbm_steps_tiled`` call (a CUDA kernel on a CUDA
-device; the plain torch step on the CPU) followed by the force/separation
-reductions and the render fields. The lattice stays on the device; only
-three scalars are read back per frame, and the fields are tensors until
-the API layer converts them.
+is one ``lbm_steps`` or ``lbm_steps_tiled`` call (one CUDA kernel launch on
+a CUDA device; the plain torch step on the CPU) followed by the
+force/separation reductions and the render fields. The lattice stays on
+the device; only three scalars are read back per frame, and the fields are
+tensors until the API layer converts them. The static cell word the
+kernels read is built with the mask, at ``reset``, ``set_alpha`` and
+``load_state``, and never in a frame.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from airfoil_tpu_torch.config import LBMConfig, DEFAULT_LBM
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init
 from airfoil_tpu_torch.lbm.diagnostics import forces_and_separation, render_fields
-from airfoil_tpu_torch.lbm.kernel import (lbm_steps, lbm_steps_tiled,
+from airfoil_tpu_torch.lbm.kernel import (cell_word, device_limits,
+                                          lbm_steps, lbm_steps_tiled,
                                           prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import build_mask
 
@@ -30,6 +33,7 @@ __all__ = ["LBMState", "WindTunnel"]
 class LBMState:
     f: torch.Tensor
     solid: torch.Tensor
+    word: torch.Tensor        # kernel.cell_word(solid)
     outline: np.ndarray
     alpha: float
     u0: float
@@ -45,10 +49,10 @@ class WindTunnel:
     raises for ``cuda`` without a CUDA device.
 
     ``tiled`` picks the step kernel, as the JAX tunnel's ``tiled`` does:
-    left ``None``, it resolves on a CUDA device by ``prefers_tiled`` against
-    the card's L2 size (the one-step kernel while the lattice's two buffers
-    fit in L2, the K-steps-per-launch kernel beyond), and to ``False`` on
-    the CPU. ``tiled=True`` on the CPU runs the plain step through
+    left ``None``, it resolves on a CUDA device by ``prefers_tiled`` on the
+    card's SM count and shared memory (``lbm_steps`` while it can hold the
+    lattice on chip, the K-steps-per-launch kernel beyond), and to
+    ``False`` on the CPU. ``tiled=True`` on the CPU runs the plain step through
     ``lbm_steps_tiled``.
     """
 
@@ -66,18 +70,20 @@ class WindTunnel:
         self.device = resolve_device(self.device)
         if self.tiled is None:
             self.tiled = self.device.type == "cuda" and prefers_tiled(
-                self.cfg.ny, self.cfg.nx,
-                torch.cuda.get_device_properties(self.device).L2_cache_size)
+                self.cfg.ny, self.cfg.nx, *device_limits(self.device))
         self.reset(alpha=6.0, u0=self.cfg.u0)
 
-    def _solid(self, mask: np.ndarray) -> torch.Tensor:
-        return torch.tensor(mask, dtype=DTYPE, device=self.device)
+    def _mask(self, mask: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """The solid mask on the device and its cell word."""
+        solid = torch.tensor(mask, dtype=DTYPE, device=self.device)
+        return solid, cell_word(solid)
 
     def reset(self, alpha: float, u0: float | None = None):
         u0 = self.cfg.u0 if u0 is None else u0
         mask, outline = build_mask(self.coords, alpha, self.cfg)
         f = equilibrium_init(self.cfg.ny, self.cfg.nx, u0, self.device)
-        self.state = LBMState(f=f, solid=self._solid(mask), outline=outline,
+        solid, word = self._mask(mask)
+        self.state = LBMState(f=f, solid=solid, word=word, outline=outline,
                               alpha=alpha, u0=u0)
         self.cl_smooth = None
         self.cd_smooth = None
@@ -94,9 +100,10 @@ class WindTunnel:
         if f.shape != shape or solid.shape != shape[1:]:
             raise ValueError(f"state shapes {f.shape}/{solid.shape} do not "
                              f"match the {shape} lattice")
+        solid, word = self._mask(solid)
         self.state = LBMState(
             f=torch.tensor(f, dtype=DTYPE, device=self.device),
-            solid=self._solid(solid), outline=np.asarray(outline, np.float64),
+            solid=solid, word=word, outline=np.asarray(outline, np.float64),
             alpha=float(alpha), u0=float(u0), step_count=int(step_count))
         self.cl_smooth = cl_smooth
         self.cd_smooth = cd_smooth
@@ -106,7 +113,7 @@ class WindTunnel:
         """Re-rasterise the mask, keep the flow state."""
         st = self.state
         mask, outline = build_mask(self.coords, alpha, self.cfg)
-        st.solid = self._solid(mask)
+        st.solid, st.word = self._mask(mask)
         st.outline = outline
         st.alpha = alpha
 
@@ -118,7 +125,8 @@ class WindTunnel:
         st = self.state
         steps = self.cfg.steps_per_frame if steps is None else steps
         step = lbm_steps_tiled if self.tiled else lbm_steps
-        st.f = step(st.f, st.solid, st.u0, self.cfg.tau, steps=steps)
+        st.f = step(st.f, st.solid, st.u0, self.cfg.tau, steps=steps,
+                    word=st.word)
         st.step_count += steps
 
         cl, cd, sep = forces_and_separation(

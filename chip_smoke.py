@@ -9,29 +9,43 @@ line) if any phase fails:
 2. build   — builds the three CUDA libraries (``lbm_steps``,
    ``lbm_steps_tiled``, ``bl_march``) from ``airfoil_tpu_torch/csrc``
    afresh, one nvcc each, in parallel, and logs ptxas's registers, stack
-   frames and spills and the tiled kernel's shared memory per block; both
-   march kernels (side and wake) must have a 0-byte stack frame and no
-   spills;
-3. kernel  — ``lbm_steps`` (one step per launch) against the plain torch
-   step on the card, NACA 2412 at alpha=6 on 128x32, 384x192, 640x384 and
-   2048x1024 after 1, 8 and 64 steps: rtol 1e-5, atol 1e-6;
-4. tiled   — ``lbm_steps_tiled`` (K steps per launch) against the plain
-   step (rtol 1e-5, atol 1e-6) and against ``lbm_steps`` (max abs 0: the
-   two share their per-cell arithmetic) on 24x12 (a window larger than
-   the grid), 128x32, 384x192, 1000x600 (ragged tiles), 2048x1024 and
-   4096x2048, after 1, 3, K, 2K+1 and 64 steps, on the NACA mask and on
-   one with solid cells on the grid's edges;
-5. physics — a CUDA ``WindTunnel`` at 384x192 for 1500 steps at alpha 0
-   and 10: finite, CD > 0, CL grows with alpha;
-6. large   — a CUDA ``WindTunnel`` at 2048x1024 resolves to the tiled
-   kernel and runs 1500 steps at alpha 0 and 10 through it alone (same
-   checks); at alpha 10 the one-step kernel gives the same CL and CD;
-7. server  — the port's HTTP server on the card: /health, /lbm/start,
+   frames and spills, the resident kernel's tiling and shared memory at
+   the served grid and the tiled kernel's tile, shared memory and blocks
+   per SM; every LBM and march kernel must have a 0-byte stack frame and
+   no spills;
+3. kernel  — ``cell_word`` (one launch) equal to the plain word on every
+   grid and mask below; ``lbm_steps`` (the lattice on chip for a whole
+   call, one cooperative launch) against the plain torch step on the card,
+   NACA 2412 at alpha=6 on 128x32, 384x192 and 640x384 after 1, 8 and 64
+   steps: rtol 1e-5, atol 1e-6; one 64-step call traced by the profiler
+   is exactly one kernel; past its capacity (1024x512, and the 2:1 grid
+   one step of 8 rows past the largest it holds) it raises ValueError
+   without a launch;
+4. server  — the port's HTTP server on the card: /health, /lbm/start,
    20 /lbm/frame posts (one changes alpha), /lbm/stop; checks every
-   decoded field and that the frames went through the one-step kernel;
+   decoded field, that the frames went through ``lbm_steps`` and the
+   three masks' words (start, alpha change) through ``cell_word``, and,
+   from a ``torch.profiler``
+   trace of one frame, that a frame launches exactly one LBM kernel and
+   no word kernel;
+5. tiled   — ``lbm_steps_tiled`` (K steps per launch, persistent,
+   TMA-fed) against the plain step (rtol 1e-5, atol 1e-6) and, wherever
+   ``lbm_steps`` holds the grid, against it (max abs 0: the two share
+   their per-cell arithmetic) on 24x12 (a window larger than the grid),
+   128x32, 384x192, 1000x600 (ragged tiles), 1002x600 (NX % 4 != 0: every
+   window by the plain-load path), 2048x1024 and 4096x2048, after 1, 3, K,
+   2K+1 and 64 steps, on the NACA mask and on one with solid cells on the
+   grid's edges;
+6. physics — a CUDA ``WindTunnel`` at 384x192 for 1500 steps at alpha 0
+   and 10: finite, CD > 0, CL grows with alpha;
+7. large   — a CUDA ``WindTunnel`` at 2048x1024 resolves to the tiled
+   kernel and runs 1500 steps at alpha 0 and 10 through it alone (same
+   checks); at the largest 2:1 grid ``lbm_steps`` holds, 1500 steps at
+   alpha 10 through each kernel give the same CL and CD;
 8. speed   — MLUPS at 640x384, 384x192, 2048x1024 and 4096x2048, the
-   4-step call (CUDA events) and the frame latency at 384x192 and
-   2048x1024, for the kernels and the plain torch step.
+   4-step call (CUDA events, and device time from the profiler) and the
+   frame latency at 384x192 and 2048x1024, for the kernels (``lbm_steps``
+   where it holds the grid) and the plain torch step.
 
 Then the XFOIL-replacement path (paneling -> panel solver -> coupled
 viscous solve), held to the JAX package's outputs in
@@ -82,8 +96,10 @@ Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
 operations of its plain version on the same inputs (pointwise torch
 operations times elements, counted by a dispatch mode) over the card's
-float32 rate. No single PyTorch call computes an LBM step or a march, so
-``library_ms`` is null.
+float32 rate. No single PyTorch call computes an LBM step, a cell word or
+a march, so ``library_ms`` is null. ``ms`` is the CUDA-event time of a
+call among back-to-back calls, ``device_ms`` the profiler's device time
+of the call's kernels.
 
 The line before last is the card as nvidia-smi names it, the line before
 that the kernel table (JSON), and the last line the result (JSON). JAX is
@@ -113,16 +129,20 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RTOL, ATOL = 1e-5, 1e-6
-GRIDS = [(128, 32), (384, 192), (640, 384), (2048, 1024)]   # (nx, ny)
+GRIDS = [(128, 32), (384, 192), (640, 384)]   # (nx, ny)
+PAST_CAPACITY = (1024, 512)
 STEP_COUNTS = (1, 8, 64)
-TILED_GRIDS = [(24, 12), (128, 32), (384, 192), (1000, 600), (2048, 1024),
-               (4096, 2048)]
+TILED_GRIDS = [(24, 12), (128, 32), (384, 192), (1000, 600), (1002, 600),
+               (2048, 1024), (4096, 2048)]
 LARGE = (2048, 1024)
 SPEED_GRIDS = [(640, 384), (384, 192), (2048, 1024), (4096, 2048)]
 N_FRAMES = 20
+PROFILE_PAD = 0.25   # seconds of idle time around a profiled region
 KERNELS = {   # name: (source, the TPU code it replaces)
     "lbm_steps": ("airfoil_tpu_torch/csrc/lbm_steps.cu",
                   "airfoil_tpu/lbm/kernel.py:55"),     # lbm_steps_pallas
+    "cell_word": ("airfoil_tpu_torch/csrc/lbm_steps.cu",
+                  "airfoil_tpu/lbm/kernel.py:45"),     # its hoisted rolls
     "lbm_steps_tiled": ("airfoil_tpu_torch/csrc/lbm_steps_tiled.cu",
                         "airfoil_tpu/lbm/kernel.py:144"),
     "bl_march": ("airfoil_tpu_torch/csrc/bl_march.cu",
@@ -287,32 +307,102 @@ def phase_build(cuda_build, kernel, march_kernel):
     for name in loaders:
         path = os.path.join(cuda_build.BUILD_DIR, f"lib{name}.log")
         with open(path) as fh:
-            for fn, use in ptxas_usage(fh.read()).items():
-                log(f"[build] {name} ptxas: {fn}: {json.dumps(use)}")
-                if name == "bl_march":
-                    require(use.get("stack") == 0
-                            and use.get("spill_stores") == 0
-                            and use.get("spill_loads") == 0,
-                            f"{fn} uses local memory: {use}")
-    shape = kernel.tiled_shape()
+            usage = ptxas_usage(fh.read())
+        require(usage, f"{name}: ptxas reported no kernel")
+        for fn, use in usage.items():
+            log(f"[build] {name} ptxas: {fn}: {json.dumps(use)}")
+            require(use.get("stack") == 0 and use.get("spill_stores") == 0
+                    and use.get("spill_loads") == 0,
+                    f"{fn} uses local memory: {use}")
+    dev = torch.device("cuda")
+    sm_count, smem = kernel.device_limits(dev)
+    plan = kernel.resident_plan(192, 384, sm_count, smem)
+    log(f"[build] lbm_steps at 384x192 on {sm_count} SMs ({smem} B of "
+        f"shared memory a block): {plan.tiles_x}x{plan.tiles_y} blocks of "
+        f"{kernel.RESIDENT_THREADS} threads on {plan.tile_w}x{plan.tile_h} "
+        f"tiles, {plan.smem_bytes} B of dynamic shared memory a block, "
+        f"{plan.exchange_floats * 4} B of exchange surfaces")
+    shape = kernel.tiled_shape(dev)
     log(f"[build] lbm_steps_tiled: {shape['tile_x']}x{shape['tile_y']} tiles, "
-        f"{shape['steps']} steps per launch, {shape['smem_bytes']} B of "
-        f"dynamic shared memory per block")
+        f"{shape['steps']} steps per launch, {shape['threads']} threads and "
+        f"{shape['smem_bytes']} B of dynamic shared memory a block, "
+        f"{shape['blocks_per_sm']} blocks an SM")
     return shape["steps"]
 
 
+def largest_resident(kernel, dev) -> tuple[int, int]:
+    """The largest 2:1 grid (nx, ny), ny a multiple of 8, that ``lbm_steps``
+    holds on this card."""
+    limits = kernel.device_limits(dev)
+    ny = 8
+    while not kernel.prefers_tiled(ny + 8, 2 * (ny + 8), *limits):
+        ny += 8
+    return 2 * ny, ny
+
+
+@contextlib.contextmanager
+def traced():
+    """A ``torch.profiler`` trace of the card whose window is padded with
+    PROFILE_PAD seconds of idle time on both sides: the profiler drops
+    device records that it places (by its CPU-to-device clock alignment,
+    which drifts over a long process) outside the window, so the work must
+    not sit at its edges."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD)
+
+
+def kernel_events(prof, *names) -> dict:
+    """{name: (device kernels whose name holds it, their device us)} of a
+    ``torch.profiler`` run, and under "all" every device kernel."""
+    out = {name: [0, 0.0] for name in (*names, "all")}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0)
+        if us <= 0.0:
+            continue
+        for name in out:
+            if name == "all" or name in e.key:
+                out[name][0] += e.count
+                out[name][1] += us
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_kernel(dev, kernel, core, masks, cfg_cls):
-    """Kernel against the plain torch step; returns the largest abs diff."""
+    """``cell_word`` against the plain word, ``lbm_steps`` against the plain
+    torch step; returns the largest abs diff of each (step, word)."""
     rng = np.random.default_rng(0)
     worst = 0.0
+    word_worst = 0
+    for nx, ny in sorted(set(GRIDS + TILED_GRIDS)):
+        cfg = cfg_cls(nx=nx, ny=ny)
+        naca = masks.rasterize_airfoil(naca4_coords(), 6.0, cfg)
+        for mask in (naca, edge_solid(naca)):
+            solid = torch.tensor(mask, device=dev)
+            before = kernel.word_launches
+            word = kernel.cell_word(solid)
+            want = core.cell_word(solid)
+            torch.cuda.synchronize()
+            require(kernel.word_launches == before + 1,
+                    "word launch counter did not advance")
+            diff = int((word.to(torch.int32) - want.to(torch.int32)).abs().max())
+            word_worst = max(word_worst, diff)
+            require(diff == 0, f"cell_word != plain at {nx}x{ny}")
+    log(f"[kernel] cell_word = plain word on {len(set(GRIDS + TILED_GRIDS))} "
+        f"grids x 2 masks (max abs {word_worst})")
     for nx, ny in GRIDS:
         cfg = cfg_cls(nx=nx, ny=ny)
         solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0, cfg),
                              device=dev)
+        word = kernel.cell_word(solid)
         f0 = noisy_state(core, cfg, dev, rng)
         for steps in STEP_COUNTS:
             before = kernel.launches
-            got = kernel.lbm_steps(f0, solid, cfg.u0, cfg.tau, steps=steps)
+            got = kernel.lbm_steps(f0, solid, cfg.u0, cfg.tau, steps=steps,
+                                   word=word)
             want = core.lbm_step(f0, solid, cfg.u0, cfg.tau, steps=steps)
             torch.cuda.synchronize()
             require(kernel.launches == before + 1,
@@ -326,38 +416,71 @@ def phase_kernel(dev, kernel, core, masks, cfg_cls):
             require(ok, f"kernel != plain at {nx}x{ny}, {steps} steps")
             require(bool(torch.isfinite(got).all()), "non-finite lattice")
             worst = max(worst, max_abs)
-    return worst
+    for _ in range(3):     # a trace may drop its one record (see traced)
+        with traced() as prof:
+            kernel.lbm_steps(f0, solid, cfg.u0, cfg.tau, steps=64, word=word)
+        ev = kernel_events(prof, "lbm_resident_kernel")
+        log(f"[kernel] one 64-step lbm_steps call at {nx}x{ny}, profiled: "
+            f"{ev['all'][0]} device kernels ({ev['lbm_resident_kernel'][0]} "
+            f"lbm_resident_kernel, {ev['all'][1]:.2f} us)")
+        require(ev["all"][0] == ev["lbm_resident_kernel"][0] <= 1,
+                f"a 64-step lbm_steps call ran {ev}")
+        if ev["all"][0] == 1:
+            break
+    require(ev["all"][0] == 1, "no traced call recorded its kernel")
+    big = largest_resident(kernel, dev)
+    for nx, ny in (PAST_CAPACITY, (big[0] + 16, big[1] + 8)):
+        f = core.equilibrium_init(ny, nx, 0.06, dev)
+        solid = torch.zeros((ny, nx), device=dev)
+        before = (kernel.launches, kernel.word_launches)
+        try:
+            kernel.lbm_steps(f, solid, 0.06, 0.58, steps=4)
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        require(raised and (kernel.launches, kernel.word_launches) == before,
+                f"lbm_steps at {nx}x{ny} past capacity: {raised or 'ran'}")
+        log(f"[kernel] {nx}x{ny} past capacity (largest 2:1 held: "
+            f"{big[0]}x{big[1]}): ValueError, no launch: {raised}")
+    return worst, float(word_worst)
 
 
 def phase_tiled(dev, kernel, core, masks, cfg_cls, k):
-    """Tiled kernel against the plain step and the one-step kernel;
-    returns the largest abs diff from the plain step."""
+    """Tiled kernel against the plain step and, where it holds the grid,
+    ``lbm_steps``; returns the largest abs diff from the plain step."""
     rng = np.random.default_rng(0)
+    limits = kernel.device_limits(dev)
     worst = 0.0
     for nx, ny in TILED_GRIDS:
         cfg = cfg_cls(nx=nx, ny=ny)
         naca = masks.rasterize_airfoil(naca4_coords(), 6.0, cfg)
         f0 = noisy_state(core, cfg, dev, rng)
+        resident = not kernel.prefers_tiled(ny, nx, *limits)
         for mask_name, mask in (("naca", naca), ("edge-solid", edge_solid(naca))):
             solid = torch.tensor(mask, device=dev)
+            word = kernel.cell_word(solid)
             for steps in (1, 3, k, 2 * k + 1, 64):
                 before = kernel.tiled_launches
                 got = kernel.lbm_steps_tiled(f0, solid, cfg.u0, cfg.tau,
-                                             steps=steps)
+                                             steps=steps, word=word)
                 torch.cuda.synchronize()
                 require(kernel.tiled_launches == before + 1,
                         f"tiled launch counter did not advance at {nx}x{ny}")
-                one = kernel.lbm_steps(f0, solid, cfg.u0, cfg.tau, steps=steps)
                 want = core.lbm_step(f0, solid, cfg.u0, cfg.tau, steps=steps)
                 diff = (got - want).abs()
                 max_abs = float(diff.max())
                 max_rel = float((diff / want.abs().clamp(min=1e-30)).max())
-                vs_one = float((got - one).abs().max())
                 ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+                vs_one = 0.0
+                if resident:
+                    one = kernel.lbm_steps(f0, solid, cfg.u0, cfg.tau,
+                                           steps=steps, word=word)
+                    vs_one = float((got - one).abs().max())
                 log(f"[tiled] {nx}x{ny} {mask_name} steps={steps}: vs plain "
                     f"max_abs={max_abs:.3e} max_rel={max_rel:.3e}; vs "
-                    f"lbm_steps max_abs={vs_one:.3e} "
-                    f"{'ok' if ok and vs_one == 0.0 else 'FAIL'}")
+                    f"lbm_steps "
+                    f"{f'max_abs={vs_one:.3e}' if resident else 'past its capacity'}"
+                    f" {'ok' if ok and vs_one == 0.0 else 'FAIL'}")
                 require(ok, f"tiled != plain at {nx}x{ny}, {steps} steps")
                 require(vs_one == 0.0, f"tiled != lbm_steps at {nx}x{ny}, "
                         f"{steps} steps: {vs_one}")
@@ -408,11 +531,18 @@ def phase_large(dev, kernel, WindTunnel, cfg_cls):
             f"large tunnel: {tiled} tiled and {launches} one-step calls")
     require(outs[1]["cl"] > outs[0]["cl"],
             f"CL must grow with alpha: {[o['cl'] for o in outs]}")
-    wt, one = _tunnel_run(WindTunnel, dev, 10.0, cfg, tiled=False)
-    require(not wt.tiled and one["cl"] == outs[1]["cl"]
-            and one["cd"] == outs[1]["cd"],
-            f"one-step kernel CL/CD {one['cl']}/{one['cd']} != tiled "
-            f"{outs[1]['cl']}/{outs[1]['cd']}")
+    nx, ny = largest_resident(kernel, dev)
+    held = cfg_cls(nx=nx, ny=ny)
+    wt_r, res = _tunnel_run(WindTunnel, dev, 10.0, held)
+    wt_t, til = _tunnel_run(WindTunnel, dev, 10.0, held, tiled=True)
+    log(f"[large] {nx}x{ny}, the largest 2:1 grid lbm_steps holds, alpha 10, "
+        f"1500 steps: lbm_steps CL={res['cl']!r} CD={res['cd']!r}; "
+        f"lbm_steps_tiled CL={til['cl']!r} CD={til['cd']!r}")
+    require(not wt_r.tiled and wt_t.tiled and res["cl"] == til["cl"]
+            and res["cd"] == til["cd"]
+            and torch.equal(wt_r.state.f, wt_t.state.f),
+            f"lbm_steps CL/CD {res['cl']}/{res['cd']} != tiled "
+            f"{til['cl']}/{til['cd']} at {nx}x{ny}")
     return tiled
 
 
@@ -440,7 +570,8 @@ def _post(url: str, fields: dict, files: dict | None = None):
 
 
 def phase_server(kernel, make_server, parse_upload, build_mask, spf):
-    """Drives the served /lbm/* path; returns (launches, median frame ms)."""
+    """Drives the served /lbm/* path; returns ({kernel: its launches in the
+    run}, median frame ms)."""
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
                                     for x, y in naca4_coords())
     dat = dat.encode()
@@ -459,6 +590,7 @@ def phase_server(kernel, make_server, parse_upload, build_mask, spf):
 
         kernel.launches = 0
         kernel.tiled_launches = 0
+        kernel.word_launches = 0
         status, meta = _post(url + "/lbm/start", {"alpha": 6.0},
                              {"file": ("naca2412.dat", dat)})
         require(status == 200, f"/lbm/start -> {status} {meta}")
@@ -488,6 +620,37 @@ def phase_server(kernel, make_server, parse_upload, build_mask, spf):
                 require(bool(np.isfinite(a[~solid]).all()),
                         f"{name}: fluid cells must be finite")
         launches, tiled = kernel.launches, kernel.tiled_launches
+        words = kernel.word_launches
+        # More frames under the profiler, one trace each: the kernels a
+        # frame launches. The counter shows one lbm_steps launch a frame; a
+        # trace may drop a record, so up to three frames are traced, none
+        # may show a tiled or word kernel or more than one resident one,
+        # and one must show exactly one.
+        for _ in range(3):
+            before = kernel.launches
+            with traced() as prof:
+                status, _ = _post(url + "/lbm/frame",
+                                  {"session": meta["session"],
+                                   "fields": "speed"})
+            require(status == 200 and kernel.launches == before + 1,
+                    f"profiled /lbm/frame -> {status}")
+            ev = kernel_events(prof, "lbm_resident_kernel",
+                               "lbm_tiled_kernel", "cell_word_kernel")
+            log(f"[server] one profiled frame: {ev['all'][0]} device "
+                f"kernels, {ev['all'][1]:.1f} us; lbm_resident_kernel "
+                f"{ev['lbm_resident_kernel'][0]} "
+                f"({ev['lbm_resident_kernel'][1]:.2f} us), lbm_tiled_kernel "
+                f"{ev['lbm_tiled_kernel'][0]}, cell_word_kernel "
+                f"{ev['cell_word_kernel'][0]}")
+            require(ev["lbm_resident_kernel"][0] <= 1
+                    and ev["lbm_tiled_kernel"][0] == 0
+                    and ev["cell_word_kernel"][0] == 0,
+                    f"a served frame must launch one LBM kernel and no word "
+                    f"kernel: {ev}")
+            if ev["lbm_resident_kernel"][0] == 1:
+                break
+        require(ev["lbm_resident_kernel"][0] == 1,
+                "no traced frame recorded its LBM kernel")
         status, _ = _post(url + "/lbm/stop", {"session": meta["session"]})
         require(status == 200, "/lbm/stop failed")
         status, _ = _post(url + "/lbm/frame", {"session": meta["session"]})
@@ -496,29 +659,50 @@ def phase_server(kernel, make_server, parse_upload, build_mask, spf):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    require(launches == N_FRAMES and tiled == 0,
-            f"{launches} one-step and {tiled} tiled kernel calls for "
-            f"{N_FRAMES} frames")
+    # Words: /lbm/start builds the mask twice (the tunnel's reset, then
+    # the handler's set_alpha), the alpha change once more.
+    require(launches == N_FRAMES and tiled == 0 and words == 3,
+            f"{launches} lbm_steps, {tiled} tiled and {words} cell_word "
+            f"kernel calls for {N_FRAMES} frames and 3 masks")
     med = statistics.median(lat)
     log(f"[server] {N_FRAMES} frames at {nx}x{ny} (alpha 6 -> 10), "
-        f"{launches} kernel launches, CL={fr['cl']} CD={fr['cd']}, "
-        f"median frame latency {med:.3f} ms (HTTP round trip)")
-    return launches, med
+        f"{launches} lbm_steps launches, {words} cell_word launches, "
+        f"CL={fr['cl']} CD={fr['cd']}, median frame latency {med:.3f} ms "
+        f"(HTTP round trip)")
+    return {"lbm_steps": launches, "cell_word": words}, med
+
+
+def device_ms(fn, n: int, name: str) -> float:
+    """Device milliseconds per call of ``fn``, which launches one kernel
+    whose name holds ``name``: the profiler's mean over the launches it
+    recorded of ``n`` calls (it drops some records, up to half of them in
+    a long process; the mean of those it keeps is the time)."""
+    fn()
+    with traced() as prof:
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+    count, us = kernel_events(prof, name)[name]
+    require(1 <= count <= n, f"{count} {name} records of {n} calls")
+    return us / count / 1e3
 
 
 def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
                 bench_mlups):
     """MLUPS, the 4-step call and the frame latency for the kernels and the
     plain step, in the order plain, kernels, kernels, plain; returns
-    {kernel name: (ms, plain ms)} of the 4-step call, the one-step kernel's
-    at 384x192 and the tiled kernel's at 2048x1024."""
+    {kernel name: (ms, plain ms, device ms)} of the 4-step call (the mean of
+    its two turns), the resident kernel's at 384x192 and the tiled kernel's
+    at 2048x1024, and of ``cell_word`` at 384x192."""
+    limits = kernel.device_limits(dev)
     for nx, ny in SPEED_GRIDS:
         big = nx * ny >= LARGE[0] * LARGE[1]
         # The plain step at the large grids takes fewer calls.
         plain = dict(steps_per_call=16, n_calls=2) if big else {}
         runs = [("plain", dict(kernel=False, **plain)),
-                ("tiled", dict(kernel=True, tiled=True)),
-                ("lbm_steps", dict(kernel=True, tiled=False))]
+                ("tiled", dict(kernel=True, tiled=True))]
+        if not kernel.prefers_tiled(ny, nx, *limits):
+            runs.append(("lbm_steps", dict(kernel=True, tiled=False)))
         runs = runs + runs[::-1]
         rates = {}
         for name, kw in runs:
@@ -532,21 +716,33 @@ def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
             f"{name} {', '.join(v)}" for name, v in rates.items())
             + f" ({card})")
 
-    steppers = {"plain": core.lbm_step, "lbm_steps": kernel.lbm_steps,
-                "tiled": kernel.lbm_steps_tiled}
     call_ms = {}
     for nx, ny in ((384, 192), LARGE):
         cfg = cfg_cls(nx=nx, ny=ny)
         solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0,
                                                      cfg), device=dev)
+        word = kernel.cell_word(solid)
         f = core.equilibrium_init(cfg.ny, cfg.nx, cfg.u0, dev)
         spf = cfg.steps_per_frame
-        for name, step in steppers.items():
+        steppers = {"plain": core.lbm_step,
+                    "tiled": lambda *a, **k: kernel.lbm_steps_tiled(
+                        *a, word=word, **k)}
+        if not kernel.prefers_tiled(ny, nx, *limits):
+            steppers["lbm_steps"] = lambda *a, **k: kernel.lbm_steps(
+                *a, word=word, **k)
+        order = list(steppers)
+        for name in order + order[::-1]:
+            step = steppers[name]
             n = 50 if name == "plain" else 200
-            ms = cuda_ms(lambda: step(f, solid, cfg.u0, cfg.tau, steps=spf), n)
-            call_ms[(nx, ny, name)] = ms
-            log(f"[speed] {nx}x{ny}, one {spf}-step call on the device, "
-                f"{name}: {ms:.4f} ms ({card})")
+            run = lambda: step(f, solid, cfg.u0, cfg.tau, steps=spf)
+            ms = cuda_ms(run, n)
+            kern = {"tiled": "lbm_tiled_kernel",
+                    "lbm_steps": "lbm_resident_kernel"}.get(name)
+            dms = device_ms(run, 20, kern) if kern else float("nan")
+            call_ms.setdefault((nx, ny, name), []).append((ms, dms))
+            log(f"[speed] {nx}x{ny}, one {spf}-step call, {name}: {ms:.4f} ms "
+                f"(CUDA events, back-to-back calls), device time "
+                f"{dms * 1e3:.2f} us (profiler) ({card})")
 
         def frame(step):
             def run():
@@ -557,7 +753,6 @@ def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
                 diagnostics.render_fields(g, solid, cfg.u0)[0].cpu()
             return run
 
-        order = ["plain", "tiled", "lbm_steps"]
         for name in order + order[::-1]:
             run = frame(steppers[name])
             run()
@@ -569,10 +764,24 @@ def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
             log(f"[speed] {nx}x{ny} frame (step + forces + one field to "
                 f"host), {name}: median {statistics.median(t):.3f} ms "
                 f"({card})")
-    return {"lbm_steps": (call_ms[(384, 192, "lbm_steps")],
-                          call_ms[(384, 192, "plain")]),
-            "lbm_steps_tiled": (call_ms[LARGE + ("tiled",)],
-                                call_ms[LARGE + ("plain",)])}
+
+    solid = torch.tensor(masks.rasterize_airfoil(
+        naca4_coords(), 6.0, cfg_cls()), device=dev)
+    word_ms = cuda_ms(lambda: kernel.cell_word(solid), 200)
+    word_dev = device_ms(lambda: kernel.cell_word(solid), 20,
+                         "cell_word_kernel")
+    word_plain = cuda_ms(lambda: core.cell_word(solid), 50)
+    log(f"[speed] 384x192 cell word: cell_word {word_ms:.4f} ms (CUDA events), "
+        f"device {word_dev * 1e3:.2f} us; plain {word_plain:.4f} ms ({card})")
+    mean = {key: tuple(statistics.fmean(r) for r in zip(*v))
+            for key, v in call_ms.items()}
+    return {"lbm_steps": (mean[(384, 192, "lbm_steps")][0],
+                          mean[(384, 192, "plain")][0],
+                          mean[(384, 192, "lbm_steps")][1]),
+            "lbm_steps_tiled": (mean[LARGE + ("tiled",)][0],
+                                mean[LARGE + ("plain",)][0],
+                                mean[LARGE + ("tiled",)][1]),
+            "cell_word": (word_ms, word_plain, word_dev)}
 
 
 # ── the XFOIL-replacement path ──────────────────────────────────────────────
@@ -1046,7 +1255,8 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
     """Default solve and its split; one side-pair march at 80 stations and
     one 24-station wake march with the kernels and the plain march; the
     side kernel at 1, 2, 62 and 1,914 lanes. Returns ({kernel: (kernel ms,
-    plain ms)}, {kernel: (bound ms, what bounds it)})."""
+    plain ms, device ms), each at its main-path shape}, {kernel: (bound ms,
+    what bounds it)})."""
     op = ops["2412"]
     pan = op.pan
     coupled.solve_viscous(op, 5.0, 1e6)            # warm
@@ -1063,10 +1273,8 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
         f"{t_pass * 1e3:.3f} ms (from the 24- and 1-pass solves, "
         f"{t_one * 1e3:.3f} ms) ({card})")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         coupled.solve_viscous(op, 5.0, 1e6)
-        torch.cuda.synchronize()
     events = prof.key_averages()
     dev_us = {"march_side": 0.0, "march_wake": 0.0, "all": 0.0}
     for e in events:
@@ -1085,6 +1293,8 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
 
     s, ue, x = (a[2:].contiguous() for a in sides)    # alpha 5 side pair
     k_ms = cuda_ms(lambda: mk.march_side(s, ue, x, 1e-6), 50)
+    k_dev = device_ms(lambda: mk.march_side(s, ue, x, 1e-6), 20,
+                      "march_side_kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain.march_side(s, ue, x, 1e-6)
@@ -1095,6 +1305,7 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
     # call is ~2 M device operations).
     cut = [a[:, :PROFILED_INTERVALS + 1].contiguous() for a in (s, ue, x)]
     t0 = time.perf_counter()
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         plain.march_side(*cut, 1e-6)
         torch.cuda.synchronize()
@@ -1103,7 +1314,8 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
     dev_us = sum(getattr(e, "device_time_total", 0.0) for e in events)
     per = n_dev / PROFILED_INTERVALS
     log(f"[viscous speed] one side-pair march, 2 lanes x 80 stations: "
-        f"kernel {k_ms:.4f} ms (CUDA events, mean of 50); plain {plain_ms:.1f}"
+        f"kernel {k_ms:.4f} ms (CUDA events, mean of 50; device "
+        f"{k_dev:.4f} ms); plain {plain_ms:.1f}"
         f" ms (one call, host clock, synchronised); profiled plain march of "
         f"{PROFILED_INTERVALS} intervals: {n_dev} device operations "
         f"({per:.0f} a station interval, so {per * 79:.0f} for the 79 of the "
@@ -1133,6 +1345,7 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
         coupled.solve_viscous(op, 5.0, 1e6)
     w = calls["march_wake"][-1]
     w_ms = cuda_ms(lambda: mk.march_wake(*w), 50)
+    w_dev = device_ms(lambda: mk.march_wake(*w), 20, "march_wake_kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain.march_wake(*w)
@@ -1140,7 +1353,8 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
     w_plain_ms = (time.perf_counter() - t0) * 1e3
     mw = w[0].shape[-1]
     log(f"[viscous speed] one wake march, 1 lane x {mw} stations: kernel "
-        f"{w_ms:.4f} ms (CUDA events, mean of 50); plain {w_plain_ms:.1f} ms "
+        f"{w_ms:.4f} ms (CUDA events, mean of 50; device {w_dev:.4f} ms); "
+        f"plain {w_plain_ms:.1f} ms "
         f"(one call, host clock) ({card})")
 
     # Bounds: bytes of the call's inputs and outputs; operations of the
@@ -1161,7 +1375,8 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
         f"({side_ops:.4g} operations), wake {wake_bound[0] * 1e3:.3f} us "
         f"({wake_ops:.4g} operations), set by {side_bound[1]} and "
         f"{wake_bound[1]}")
-    return ({"bl_march": (k_ms, plain_ms), "bl_march_wake": (w_ms, w_plain_ms)},
+    return ({"bl_march": (k_ms, plain_ms, k_dev),
+             "bl_march_wake": (w_ms, w_plain_ms, w_dev)},
             {"bl_march": side_bound, "bl_march_wake": wake_bound})
 
 
@@ -1182,15 +1397,25 @@ def phase_mask_speed(dev, card, masks, cfg_cls, WindTunnel):
 
 def lbm_bound(dev, core, masks, cfg_cls, grid) -> tuple[float, str]:
     """Bound of one ``steps_per_frame``-step LBM call on ``grid``: the
-    lattice read and written once and the mask read once; the operations of
-    the plain step."""
+    lattice read and written once and the cell word, which is what the
+    kernels read of the mask, read once; the operations of the plain
+    step."""
     cfg = cfg_cls(nx=grid[0], ny=grid[1])
     solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0, cfg),
                          device=dev)
     f = core.equilibrium_init(cfg.ny, cfg.nx, cfg.u0, dev)
     ops = count_ops(core.lbm_step, f, solid, cfg.u0, cfg.tau,
                     steps=cfg.steps_per_frame)
-    return bound(2 * nbytes(f) + nbytes(solid), ops)
+    return bound(2 * nbytes(f) + nbytes(core.cell_word(solid)), ops)
+
+
+def word_bound(dev, core, masks, cfg_cls) -> tuple[float, str]:
+    """Bound of one cell word at the served grid: the mask read once and the
+    word written once; the operations of the plain word."""
+    solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0,
+                                                 cfg_cls()), device=dev)
+    return bound(nbytes(solid, core.cell_word(solid)),
+                 count_ops(core.cell_word, solid))
 
 
 def main() -> int:
@@ -1223,19 +1448,20 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
     k = phase_build(cuda_build, kernel, march_kernel)
-    max_abs = {"lbm_steps": phase_kernel(dev, kernel, core, masks, LBMConfig),
-               "lbm_steps_tiled": phase_tiled(dev, kernel, core, masks,
-                                              LBMConfig, k)}
+    max_abs = dict(zip(("lbm_steps", "cell_word"),
+                       phase_kernel(dev, kernel, core, masks, LBMConfig)))
+    launches, _ = phase_server(kernel, make_server, parse_upload,
+                               masks.build_mask, LBMConfig().steps_per_frame)
+    max_abs["lbm_steps_tiled"] = phase_tiled(dev, kernel, core, masks,
+                                             LBMConfig, k)
     phase_physics(dev, WindTunnel)
-    launches = {"lbm_steps_tiled": phase_large(dev, kernel, WindTunnel,
-                                               LBMConfig)}
-    launches["lbm_steps"], _ = phase_server(
-        kernel, make_server, parse_upload, masks.build_mask,
-        LBMConfig().steps_per_frame)
+    launches["lbm_steps_tiled"] = phase_large(dev, kernel, WindTunnel,
+                                              LBMConfig)
     times = phase_speed(dev, card, kernel, core, diagnostics, masks,
                         LBMConfig, bench_mlups)
     phase_mask_speed(dev, card, masks, LBMConfig, WindTunnel)
     bounds = {"lbm_steps": lbm_bound(dev, core, masks, LBMConfig, (384, 192)),
+              "cell_word": word_bound(dev, core, masks, LBMConfig),
               "lbm_steps_tiled": lbm_bound(dev, core, masks, LBMConfig, LARGE)}
 
     goldens = load_goldens()
@@ -1261,7 +1487,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_abs[name],
-        "ms": times[name][0], "plain_ms": times[name][1],
+        "ms": times[name][0], "device_ms": times[name][2],
+        "plain_ms": times[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}))

@@ -35,7 +35,7 @@ from test_torch_lbm import (_close, _force_bar, _mask, _noisy_f,
                             _surface_faces, _t)
 
 TILED = LBMConfig(nx=128, ny=96)      # three 32-row strips on the JAX side
-H100_L2 = 52_428_800                  # L2_cache_size torch reports (50 MiB)
+H100_SMS, H100_SMEM = 132, 232_448    # SMs, opt-in shared memory per block
 
 
 def _edge_solid(mask):
@@ -92,14 +92,20 @@ class TestTiledKernelModule:
         assert kernel.tiled_launches == 0
 
     @pytest.mark.parametrize("nx,ny,tiled", [
-        (384, 192, False),     # 5.3 MB: the served grid stays on kernel #1
-        (640, 384, False),     # 17.7 MB
-        (1024, 512, False),    # 37.7 MB: kernel #1 here, tiled on a TPU
-        (2048, 1024, True),    # 151 MB
-        (4096, 2048, True),    # 604 MB
+        (384, 192, False),     # 2.65 MB: the served grid stays on kernel #1
+        (640, 384, False),     # 8.8 MB: bench_mlups's default
+        (880, 440, False),     # 13.9 MB: the largest 2:1 grid kernel #1 holds
+        (880, 448, True),      # just past its capacity
+        (1024, 512, True),     # 18.9 MB: two buffers exceed 132 x 227 KB
+        (2048, 1024, True),    # 75 MB
+        (4096, 2048, True),    # 302 MB
     ])
     def test_prefers_tiled(self, nx, ny, tiled):
-        assert kernel.prefers_tiled(ny, nx, H100_L2) is tiled
+        """Tiled exactly where ``lbm_steps`` cannot hold the lattice on an
+        H100's SMs (``resident_plan`` finds no tiling)."""
+        assert kernel.prefers_tiled(ny, nx, H100_SMS, H100_SMEM) is tiled
+        assert (kernel.resident_plan(ny, nx, H100_SMS, H100_SMEM)
+                is None) is tiled
 
 
 class TestTiledWindTunnel:

@@ -17,18 +17,24 @@ Ported so far:
 - ``lbm``             — the interactive wind tunnel: D2Q9 core as torch
   ops, the hand-written CUDA step kernels (``csrc/lbm_steps.cu``,
   ``csrc/lbm_steps_tiled.cu``), diagnostics, ``WindTunnel``, MLUPS bench.
-- ``api``             — the ``/lbm/*`` session handlers and the stdlib
-  HTTP server, serving the page ``ui/static_app.html`` (a byte copy).
+- ``api``             — ``/upload_airfoil/``, the ``/lbm/*`` session
+  handlers and the stdlib HTTP server, serving the page
+  ``ui/static_app.html`` (a byte copy).
 - ``numerics``        — jnp primitives torch lacks (``interp``,
-  ``nanmax``/``nanmin``, JAX-tie ``clip``) and a forward-mode ``Dual``.
+  ``nanmax``/``nanmin``, JAX-tie ``clip``, JAX's ``sigmoid`` and
+  ``softplus``) and a forward-mode ``Dual``.
 - ``paneling``        — ``repanel``, ``panel_geometry``,
   ``smooth_geometry``, ``rotate_about_quarter_chord``.
 - ``inviscid``        — the linear-vortex panel solver (``build_operator``,
   ``solve_inviscid``, ``velocity_at_points``).
 - ``viscous``         — closures, the boundary-layer march (plain torch,
   and the hand-written CUDA kernel ``csrc/bl_march.cu`` behind
-  ``viscous.kernel``), the wake operator and the direct coupled solve
-  ``solve_viscous``.
+  ``viscous.kernel``), the wake operator, the direct coupled solve
+  ``solve_viscous`` and the simultaneous-Newton solver ``viscous.newton``.
+- ``polar``           — ``analyze_airfoil``, the three-strategy
+  single-point analysis.
+- ``utils``           — the analysis counter (a copy of the reference's
+  ``utils/stats.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,24 @@
-"""Transport-independent API handlers for the wind-tunnel service.
+"""Transport-independent API handlers: the wind-tunnel sessions and the
+single-point analysis (``/upload_airfoil/``).
 
-Port of the parts of ``airfoil_tpu/api/handlers.py`` that the ``/lbm/*``
-path needs. That module imports JAX at import time, so ``ApiError``,
-``parse_upload`` and ``validate_envelope`` are copied here; ``/health``
-reports the torch device instead of a JAX backend. Handlers map parsed
-inputs to ``(status_code, payload_dict)``.
+Port of the parts of ``airfoil_tpu/api/handlers.py`` that those routes
+need. That module imports JAX at import time, so ``ApiError``,
+``parse_upload``, ``validate_envelope``, ``_write_run_log`` and
+``handle_upload`` are copied here; ``/health`` reports the torch device
+instead of a JAX backend, and ``handle_upload`` takes the device to solve
+on. ``start_warmup`` is not ported: it warms the reference's XLA compiles,
+and the port compiles nothing ahead (its CUDA libraries build at first
+use). Handlers map parsed inputs to ``(status_code, payload_dict)``.
 """
 
 from __future__ import annotations
 
 import base64
+import logging
+import os
+import tempfile
 import threading
+import time
 import uuid
 
 import numpy as np
@@ -23,10 +31,13 @@ from airfoil_tpu_torch.geometry import (
     parse_dat_text,
 )
 from airfoil_tpu_torch.device import resolve_device
+from airfoil_tpu_torch.utils.stats import increment_analysis_count
+
+logger = logging.getLogger(__name__)
 
 __all__ = [
     "ApiError", "parse_upload", "validate_envelope", "handle_root",
-    "handle_health", "LBMSessions",
+    "handle_health", "handle_upload", "LBMSessions",
 ]
 
 
@@ -79,6 +90,94 @@ def handle_health(device: torch.device):
         "backend": device.type,
         "accelerator": on_cuda,
         "device": torch.cuda.get_device_name(device) if on_cuda else "cpu",
+    }
+
+
+def _write_run_log(run_id: str, filename: str, reynolds: float,
+                   alpha: float, n_coords: int, parser_fixes: list,
+                   result, elapsed: float):
+    """Per-run solver artifact, the reference's ``xfoil_output.log``
+    analog (reference main.py:404-415). One file per request under
+    AIRFOIL_TPU_RUN_LOG_DIR (default ``airfoil_tpu_runs`` in the temporary
+    directory; set empty to disable); best-effort, bounded to the newest
+    ~200 files."""
+    log_dir = os.environ.get("AIRFOIL_TPU_RUN_LOG_DIR",
+                             os.path.join(tempfile.gettempdir(),
+                                          "airfoil_tpu_runs"))
+    if not log_dir:
+        return
+    try:
+        os.makedirs(log_dir, exist_ok=True)
+        entries = sorted(os.listdir(log_dir))
+        for stale in entries[:-200]:
+            try:
+                os.unlink(os.path.join(log_dir, stale))
+            except OSError:
+                pass
+        path = os.path.join(
+            log_dir, f"{time.strftime('%Y%m%d-%H%M%S')}_{run_id}.log")
+        with open(path, "w") as f:
+            f.write(f"run_id: {run_id}\nfile: {filename}\n"
+                    f"reynolds: {reynolds:g}\nalpha: {alpha:g}\n"
+                    f"n_coords: {n_coords}\n"
+                    f"elapsed_seconds: {elapsed:.3f}\n"
+                    f"mode: {result.mode}\nstrategy: {result.strategy}\n"
+                    f"converged: {result.converged}\n"
+                    f"sep_fraction: {result.sep_fraction:.4f}\n"
+                    f"coefficients: {result.coefficients}\n"
+                    f"parser_fixes:\n")
+            for fix in parser_fixes:
+                f.write(f"  - {fix}\n")
+            if result.extras:
+                f.write(f"extras: {result.extras}\n")
+    except Exception as e:           # pragma: no cover - never block a reply
+        logger.warning("run log write failed: %s", e)
+
+
+def handle_upload(filename: str, content: bytes,
+                  reynolds: float, alpha: float, device=None):
+    """``POST /upload_airfoil/``: validate, parse, ``analyze_airfoil`` on
+    ``device`` (see ``resolve_device``), log the run, count it, and answer
+    with the reference's schema (main.py:605-615)."""
+    validate_envelope(reynolds, alpha)
+    coords, parser_fixes = parse_upload(filename, content)
+    run_id = str(uuid.uuid4())[:8]
+    logger.info("request %s: %s Re=%g alpha=%g (%d pts)",
+                run_id, filename, reynolds, alpha, len(coords))
+
+    from airfoil_tpu_torch.polar import analyze_airfoil
+
+    t0 = time.perf_counter()
+    result = analyze_airfoil(coords, reynolds, alpha, device=device)
+    elapsed = time.perf_counter() - t0
+    logger.info("request %s done in %.3fs (mode=%s strategy=%d)",
+                run_id, elapsed, result.mode, result.strategy)
+    _write_run_log(run_id, filename, reynolds, alpha, len(coords),
+                   parser_fixes, result, elapsed)
+    # Result-sanity warnings (reference main.py:499-502 logs the same two
+    # checks): a viscous CD below the flat-plate floor at this Re, or an
+    # implausibly high L/D, usually means a wrong-basin solve slipped
+    # through the convergence gates.
+    c = result.coefficients
+    cd_v = c.get("CD") or 0.0
+    cl_v = c.get("CL") or 0.0
+    if result.mode == "viscous" and reynolds > 1e5 and 0 < cd_v < 0.005:
+        logger.warning("request %s: CD=%.6f suspiciously low "
+                       "(expected ~0.007-0.012 at this Re)", run_id, cd_v)
+    if cd_v > 0 and abs(cl_v) / cd_v > 150:
+        logger.warning("request %s: L/D=%.0f unusually high",
+                       run_id, abs(cl_v) / cd_v)
+    increment_analysis_count()
+    return 200, {
+        "success": True,
+        "coords_before": coords,
+        "coords_after": coords,
+        "num_points": len(coords),
+        "cp_x": result.cp_x,
+        "cp_values": result.cp_values,
+        "coefficients": result.coefficients,
+        "bl_data": result.bl_data,
+        "parser_fixes": parser_fixes,
     }
 
 

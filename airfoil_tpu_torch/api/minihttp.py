@@ -1,9 +1,13 @@
-"""Dependency-free HTTP server for the port: the wind-tunnel service.
+"""Dependency-free HTTP server for the port: the single-point analysis
+and the wind-tunnel service.
 
 Port of ``airfoil_tpu/api/minihttp.py`` on the standard library's
 ``ThreadingHTTPServer``, with the same routes, per-IP rate limiter and
-multipart/form-data parser. It compiles nothing at start-up. The routes
-whose solvers are not ported yet (``/upload_airfoil/``, ``/polar/``,
+multipart/form-data parser. ``/upload_airfoil/`` runs ``analyze_airfoil``
+on the server's device under the ``solve`` rate limit and the solver
+lock. It compiles nothing at start-up: the reference's ``start_warmup``
+warms XLA compiles, which the port does not have (its CUDA libraries build
+at first use). The routes whose solvers are not ported yet (``/polar/``,
 ``/batch/`` and ``/stats``) answer 501. The page at ``/app`` is the port's
 byte copy of the reference's ``ui/static_app.html``.
 
@@ -34,7 +38,7 @@ __all__ = ["serve", "make_server", "NOT_PORTED"]
 
 _STATIC_APP = os.path.join(os.path.dirname(os.path.dirname(__file__)), "ui",
                            "static_app.html")
-NOT_PORTED = ("/upload_airfoil/", "/polar/", "/batch/", "/stats")
+NOT_PORTED = ("/polar/", "/batch/", "/stats")
 
 
 def _parse_multipart(body: bytes, content_type: str):
@@ -110,8 +114,8 @@ class _RateLimiter:
 
 def make_server(host: str = "0.0.0.0", port: int | None = None,
                 rate_limit: bool = True, device=None):
-    """A ``ThreadingHTTPServer`` serving wind-tunnel sessions on
-    ``device`` (resolved by ``device.resolve_device``; raises for
+    """A ``ThreadingHTTPServer`` serving analyses and wind-tunnel sessions
+    on ``device`` (resolved by ``device.resolve_device``; raises for
     ``cuda`` without a CUDA device)."""
     port = config.PORT if port is None else port
     sessions = LBMSessions(device=device)
@@ -229,10 +233,17 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
                     self._body()  # drain, so the connection stays usable
                     self._not_ported(path)
                     return
-                if path == "/lbm/start" and self._limited("solve"):
+                if path in ("/upload_airfoil/", "/lbm/start") \
+                        and self._limited("solve"):
                     return
                 fields, files = self._form()
-                if path == "/lbm/start":
+                if path == "/upload_airfoil/":
+                    name, content = self._file_field(files)
+                    with solver_lock:
+                        out = handlers.handle_upload(
+                            name, content, _f(fields, "reynolds"),
+                            _f(fields, "alpha"), device=sessions.device)
+                elif path == "/lbm/start":
                     name, content = self._file_field(files)
                     with solver_lock:
                         out = sessions.start(name, content,

@@ -16,9 +16,16 @@ forward-mode dual type for the boundary-layer march.
 - ``clip``, ``maximum``, ``minimum``: as JAX writes ``jnp.clip``
   (``minimum(hi, maximum(lo, x))``), NaN-propagating, with the derivative
   split 0.5/0.5 at a tie as in JAX (``torch.clamp``'s is 1 at the bound).
-- ``where``, ``exp``, ``log``, ``log10``, ``sqrt``, ``tanh``, ``stack``:
-  the torch function for tensors, the dual rule for ``Dual``. ``log10`` is
-  ``log(x) * 0.4342944920063019`` in float32, as JAX lowers ``jnp.log10``.
+- ``where``, ``exp``, ``log``, ``log10``, ``sqrt``, ``tanh``, ``stack``,
+  ``cat``: the torch function for tensors, the dual rule for ``Dual``.
+  ``log10`` is ``log(x) * 0.4342944920063019`` in float32, as JAX lowers
+  ``jnp.log10``.
+- ``sigmoid``: ``jax.nn.sigmoid`` (``lax.logistic``), JVP sigma (1 - sigma).
+- ``softplus``: ``jax.nn.softplus``, which is ``jnp.logaddexp(x, 0)``:
+  max(x, 0) + log1p(exp(-|x|)) (``torch.nn.functional.softplus`` instead
+  returns x past its threshold), JVP exp(x - softplus(x)).
+- ``matvec``: ``a @ x`` over the last axis of ``x``, which may carry
+  leading batch axes or be a ``Dual``.
 
 ``Dual`` carries a value ``v`` and K tangents ``t`` (K leading, so ``t``
 is (K, *v.shape)); arithmetic, comparisons and the functions above follow
@@ -33,9 +40,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Dual", "clip", "exp", "gradient", "interp", "log", "log10",
-           "maximum", "minimum", "nanmax", "nanmin", "sqrt", "stack", "tanh",
-           "value", "where", "zeros_like"]
+__all__ = ["Dual", "cat", "clip", "exp", "gradient", "interp", "log",
+           "log10", "matvec", "maximum", "minimum", "nanmax", "nanmin",
+           "sigmoid", "softplus", "sqrt", "stack", "tanh", "value", "where",
+           "zeros_like"]
 
 # jnp.interp treats a segment as empty below this width.
 _DX_EPS = float(np.spacing(np.finfo(np.float32).eps))
@@ -72,6 +80,12 @@ class Dual:
         return Dual(self.v[idx], self.t[(slice(None), idx)]
                     if not isinstance(idx, tuple) else
                     self.t[(slice(None),) + idx])
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and not isinstance(shape[0], int):
+            shape = tuple(shape[0])
+        return Dual(self.v.reshape(shape),
+                    self.t.reshape(self.t.shape[0], *shape))
 
     def __neg__(self):
         return Dual(-self.v, _neg(self.t))
@@ -196,8 +210,14 @@ def where(c, a, b):
     if at is None and bt is None:
         return out
     zero = _const(0.0, out)
-    return Dual(out, torch.where(c, zero if at is None else at,
-                                 zero if bt is None else bt))
+
+    def lift(t):     # (K, *v.shape) -> (K, 1.., *v.shape) of out's rank
+        if t is None:
+            return zero
+        return t.reshape(t.shape[0], *[1] * (out.dim() + 1 - t.dim()),
+                         *t.shape[1:])
+
+    return Dual(out, torch.where(c, lift(at), lift(bt)))
 
 
 def zeros_like(x):
@@ -236,6 +256,32 @@ def tanh(x):
     return Dual(out, x.t * (1.0 - out * out))
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid``; JVP sigma (1 - sigma), as ``lax.logistic``'s."""
+    if not isinstance(x, Dual):
+        return torch.sigmoid(x)
+    out = torch.sigmoid(x.v)
+    return Dual(out, x.t * (out * (1.0 - out)))
+
+
+def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x == torch.inf, 0.0, x)
+
+
+def softplus(x):
+    """``jax.nn.softplus`` = ``jnp.logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), x itself where x is NaN; its JVP is JAX's,
+    exp(x - softplus(x))."""
+    xv = value(x)
+    out = torch.where(torch.isnan(xv), xv,
+                      torch.clamp(xv, min=0.0)
+                      + torch.log1p(torch.exp(-xv.abs())))
+    if not isinstance(x, Dual):
+        return out
+    return Dual(out, x.t * torch.exp(_finite_or_zero(xv)
+                                     - _finite_or_zero(out)))
+
+
 def stack(xs, dim: int = -1):
     """``torch.stack`` along ``dim`` (a negative axis of the values)."""
     if not any(isinstance(x, Dual) for x in xs):
@@ -246,24 +292,50 @@ def stack(xs, dim: int = -1):
     return Dual(torch.stack(vs, dim), torch.stack(ts, dim))
 
 
-def interp(x, xp: torch.Tensor, fp: torch.Tensor):
+def cat(xs, dim: int = -1):
+    """``torch.cat`` along ``dim`` (a negative axis of the values)."""
+    if not any(isinstance(x, Dual) for x in xs):
+        return torch.cat(xs, dim)
+    k = next(x.t.shape[0] for x in xs if isinstance(x, Dual))
+    ts = [x.t if isinstance(x, Dual) else x.new_zeros((k, *x.shape))
+          for x in xs]
+    return Dual(torch.cat([value(x) for x in xs], dim), torch.cat(ts, dim))
+
+
+def matvec(a: torch.Tensor, x):
+    """``a @ x`` for ``x`` (n,), (..., n) (each row a vector) or a
+    ``Dual``."""
+    if isinstance(x, Dual):
+        return Dual(x.v @ a.mT, x.t @ a.mT)
+    return a @ x if x.dim() == 1 else x @ a.mT
+
+
+def interp(x, xp: torch.Tensor, fp):
     """``jnp.interp(x, xp, fp)`` for 1-D increasing ``xp``; ``x`` a tensor
-    of any shape or a ``Dual``."""
+    of any shape or a ``Dual``, ``fp`` a 1-D tensor or ``Dual``, or, with
+    a 1-D ``x``, a batch (..., len(xp)) of them (one interpolation a row,
+    as ``vmap`` over ``fp``)."""
     n = xp.shape[0]
     xv = value(x)
     i = (xp <= xv.unsqueeze(-1)).sum(-1).clamp(1, n - 1)
+    rows = value(fp).dim() > 1
 
     def at(a, j):      # a[j], written so that vmap never sees a 0-d index
         return a[j.reshape(-1)].reshape(j.shape)
 
     x_lo, x_hi = at(xp, i - 1), at(xp, i)
-    f_lo, f_hi = at(fp, i - 1), at(fp, i)
+    if rows:
+        f_lo, f_hi = fp[..., i - 1], fp[..., i]
+        first, last = fp[..., :1], fp[..., -1:]
+    else:
+        f_lo, f_hi = at(fp, i - 1), at(fp, i)
+        first, last = fp[0], fp[-1]
     dx = x_hi - x_lo
     dx0 = dx.abs() <= _DX_EPS
     f = where(dx0, f_lo,
               f_lo + ((x - x_lo) / torch.where(dx0, 1.0, dx)) * (f_hi - f_lo))
-    f = where(xv < xp[0], fp[0], f)
-    return where(xv > xp[-1], fp[-1], f)
+    f = where(xv < xp[0], first, f)
+    return where(xv > xp[-1], last, f)
 
 
 def gradient(f: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ from airfoil_tpu_torch.inviscid.panel_solver import (
     _freestream,
     solve_inviscid,
 )
+from airfoil_tpu_torch import numerics as nm
 from airfoil_tpu_torch.numerics import clip, gradient, interp, nanmax, nanmin
 from airfoil_tpu_torch.viscous import kernel
 from airfoil_tpu_torch.viscous.march import BLState, wake_ctau0
@@ -160,40 +161,43 @@ def _sigma_from_sides(pan, s0, xi_u, m_u, xi_l, m_l):
                        interp(xi_panel_l, xi_l, sig_l))
 
 
+def _with_zero(m):
+    """``m`` (..., M), a tensor or ``Dual``, with a 0 put before its
+    first station."""
+    v = nm.value(m)
+    return nm.cat([v.new_zeros((*v.shape[:-1], 1)), m])
+
+
 def _sigma_nodal_from_sides(pan, s0, xi_u, m_u, xi_l, m_l, clip_at=2.0):
     """Panel-consistent transpiration sources (XFOIL-style, no smoothing):
     the station mass defects interpolated to the panel nodes (m(0) = 0 at
     the stagnation point), differenced per panel in the flow direction;
-    the panel straddling the stagnation point emits both sides' outflow."""
-    zero = m_u.new_zeros(1)
-    xi_u0 = torch.cat([zero, xi_u])
-    mu0 = torch.cat([zero, m_u])
-    xi_l0 = torch.cat([zero, xi_l])
-    ml0 = torch.cat([zero, m_l])
+    the panel straddling the stagnation point emits both sides' outflow.
+    ``m_u``, ``m_l`` may carry leading batch axes or be ``Dual``s."""
     s_nodes = pan.s
-    m_up = interp(clip(s0 - s_nodes, 0.0), xi_u0, mu0)
-    m_lo = interp(clip(s_nodes - s0, 0.0), xi_l0, ml0)
-    m_nodes = torch.where(s_nodes < s0, m_up, m_lo)
+    m_up = interp(clip(s0 - s_nodes, 0.0), _with_zero(xi_u), _with_zero(m_u))
+    m_lo = interp(clip(s_nodes - s0, 0.0), _with_zero(xi_l), _with_zero(m_l))
+    m_nodes = nm.where(s_nodes < s0, m_up, m_lo)
     ds = clip(s_nodes[1:] - s_nodes[:-1], 1e-9)
-    dm = m_nodes[1:] - m_nodes[:-1]
+    dm = m_nodes[..., 1:] - m_nodes[..., :-1]
     fully_upper = s_nodes[1:] <= s0
     fully_lower = s_nodes[:-1] >= s0
     # The arc runs TE -> LE -> TE: sigma = -dm/ds on the upper side.
-    sigma = torch.where(
+    sigma = nm.where(
         fully_upper, -dm / ds,
-        torch.where(fully_lower, dm / ds, (m_nodes[:-1] + m_nodes[1:]) / ds))
+        nm.where(fully_lower, dm / ds,
+                 (m_nodes[..., :-1] + m_nodes[..., 1:]) / ds))
     return clip(sigma, -clip_at, clip_at)
 
 
 def _sigma_wake_nodal(wpan, xi_w, m_w, m_te, clip_at=2.0):
     """Panel-consistent wake sources, anchored at the TE with the merged
-    body mass defect ``m_te``."""
+    body mass defect ``m_te`` (batch axes and ``Dual``s as above)."""
     s_rel = wpan.s - wpan.s[0]
-    xi0 = torch.cat([m_w.new_zeros(1), xi_w])
-    m0 = torch.cat([m_te.reshape(1), m_w])
-    m_nodes = interp(s_rel, xi0, m0)
+    m_nodes = interp(s_rel, _with_zero(xi_w), nm.cat([m_te[..., None], m_w]))
     ds = clip(s_rel[1:] - s_rel[:-1], 1e-9)
-    return clip((m_nodes[1:] - m_nodes[:-1]) / ds, -clip_at, clip_at)
+    return clip((m_nodes[..., 1:] - m_nodes[..., :-1]) / ds,
+                -clip_at, clip_at)
 
 
 def _forces_from_cp(pan, cp, alpha_deg):

@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's wind-tunnel path and its XFOIL-replacement path
-(``airfoil_tpu_torch``) on the card and fails (non-zero exit, no result
-line) if any phase fails:
+Drives the port's wind-tunnel path, its XFOIL-replacement path and its
+single-point analysis service (``airfoil_tpu_torch``) on the card and
+fails (non-zero exit, no result line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
@@ -92,6 +92,38 @@ viscous solve), held to the JAX package's outputs in
     phase's batch), and the wake kernel at 24 stations with its plain
     march.
 
+Then the simultaneous-Newton path (``viscous.newton`` -> ``polar.analyze``
+-> ``POST /upload_airfoil/``), held to ``tests/golden/torch_newton.json``
+(``tests/make_torch_newton_goldens.py``) at the same bars, around the range
+of the reference ensemble's members with the same ``converged``:
+
+13. newton march — every side and wake march of a tripped (x 0.05) and a
+    free default Newton solve (NACA 2412, alpha 4: 96 stations a side, 20
+    in the wake), as the lanes of one batch with the plain march's
+    rounding ensemble, held as in phase 10, and each launched at its own
+    shape and bit-equal to its lanes of the batch;
+14. newton — the default ``solve_viscous_newton`` at the five golden
+    points, ``solve_polar_point`` at NACA 2412 alpha 8 and both
+    continuation solves from the reference's donor state to alpha 10;
+    exactly 10 side + 1 wake march launches a default solve (3 + 1 a
+    continuation); one LM iteration under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronisation;
+15. analyze — ``analyze_airfoil`` (NACA 2412, 80 points a side) at alpha 4:
+    viscous, the coefficients against the golden ensemble, the full
+    boundary-layer schema; at alpha 19: inviscid, strategy 3, the warning,
+    CD 0, CL and Cm as the reference's; the solver calls beside the
+    reference's;
+16. upload — ``POST /upload_airfoil/`` on the port's server on the card
+    with the golden's file at Re 1e6, alpha 5: the reply's schema and
+    coordinates as the reference's, the coefficients within the bars of
+    its ensemble, one run log, the analysis counter up by one;
+17. newton speed — median wall of 10 default solves, the LM iterations and
+    host synchronisations of a solve, its device time and busy share; one
+    LM iteration's dispatched operations, device kernels and time, the
+    four batched Cholesky solves, ``_reproject_n``; the march kernels at
+    96 and 20 stations with their plain times and bounds; the analyze and
+    upload wall times.
+
 Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
 operations of its plain version on the same inputs (pointwise torch
@@ -102,8 +134,9 @@ call among back-to-back calls, ``device_ms`` the profiler's device time
 of the call's kernels.
 
 The line before last is the card as nvidia-smi names it, the line before
-that the kernel table (JSON), and the last line the result (JSON). JAX is
-never imported, nor anything of ``airfoil_tpu``.
+that the kernel table (JSON; the march entries add ``newton_*`` keys: the
+Newton path's launches and the kernels at its shapes), and the last line
+the result (JSON). JAX is never imported, nor anything of ``airfoil_tpu``.
 """
 
 from __future__ import annotations
@@ -117,11 +150,13 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
 import uuid
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -156,6 +191,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 POLAR_ALPHAS = tuple(float(a) for a in range(-10, 21))   # 31 points
 GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_viscous.json")
+NEWTON_GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_newton.json")
 N_PANELS = 160
 MARCH_RTOL = 1e-4
 ENSEMBLE_K = np.arange(-16, 17)
@@ -245,6 +281,23 @@ def count_ops(fn, *args, **kwargs) -> int:
 
     with Count():
         fn(*args, **kwargs)
+    return total
+
+
+def count_dispatches(fn, *args) -> int:
+    """Torch operations that ``fn`` dispatches (views included): what the
+    host issues, one by one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    total = 0
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            nonlocal total
+            total += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn(*args)
     return total
 
 
@@ -676,13 +729,18 @@ def device_ms(fn, n: int, name: str) -> float:
     """Device milliseconds per call of ``fn``, which launches one kernel
     whose name holds ``name``: the profiler's mean over the launches it
     recorded of ``n`` calls (it drops some records, up to half of them in
-    a long process; the mean of those it keeps is the time)."""
+    a long process, and late in one now and then all of a window's: then
+    up to two more windows are traced; the mean of those it keeps is the
+    time)."""
     fn()
-    with traced() as prof:
-        for _ in range(n):
-            fn()
-            torch.cuda.synchronize()
-    count, us = kernel_events(prof, name)[name]
+    for _ in range(3):
+        with traced() as prof:
+            for _ in range(n):
+                fn()
+                torch.cuda.synchronize()
+        count, us = kernel_events(prof, name)[name]
+        if count:
+            break
     require(1 <= count <= n, f"{count} {name} records of {n} calls")
     return us / count / 1e3
 
@@ -785,8 +843,8 @@ def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
 
 
 # ── the XFOIL-replacement path ──────────────────────────────────────────────
-def load_goldens() -> dict:
-    with open(GOLDENS) as fh:
+def load_goldens(path: str = GOLDENS) -> dict:
+    with open(path) as fh:
         return json.load(fh)
 
 
@@ -822,14 +880,19 @@ def _hold_march(got, want, name: str, stop=None) -> float:
     worst = 0.0
     for lane in range(lanes):
         k = m if stop is None else stop[lane]
+        if k == 0:
+            continue
         for f in ("theta", "dstar", "hk", "cf"):
             a = getattr(got, f)[lane, :k]
             b = getattr(want, f)[lane, :k]
             d = (a - b).abs()
             worst = max(worst, float(d.max()))
+            rel = d / b.abs()
+            at = int(rel.argmax())
             require(bool((d <= MARCH_RTOL * b.abs()).all()),
-                    f"{name} lane {lane} {f}: max rel "
-                    f"{float((d / b.abs()).max()):.3e}")
+                    f"{name} lane {lane} {f}: max rel {float(rel.max()):.3e} "
+                    f"at station {at} of {k} (kernel {float(a[at])!r}, plain "
+                    f"{float(b[at])!r})")
         for f in ("turb", "separated"):
             require(torch.equal(getattr(got, f)[lane, :k],
                                 getattr(want, f)[lane, :k]),
@@ -953,155 +1016,30 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
         f"{t_plain:.2f} s")
 
     # The main path's own inputs: every march call of a default solve
-    # tripped at trip_x and of a free one, as they reached the kernel.
+    # tripped at trip_x and of a free one, as they reached the kernel;
+    # with them, as two more calls of 4 lanes, the NACA 2412 sides at alpha
+    # 0 and 5 tripped at trip_x and free. The tripped solve's side marches
+    # and the tripped sides are strict (no laminar knife edge; a main-path
+    # lane's last station may leave the Newton unconverged where ue falls
+    # steeply into the trailing edge), the free sides are held up to where
+    # the plain march's own ensemble spreads.
     with recording(mk) as calls:
         coupled.solve_viscous(op, 5.0, 1e6, x_forced_transition=trip_x)
         n_trip = len(calls["march_side"])
         n_trip_w = len(calls["march_wake"])
         coupled.solve_viscous(op, 5.0, 1e6)
-    main_sides = _stack_calls(calls["march_side"][:n_trip], 3)
-    main_wake = _stack_calls(calls["march_wake"], 2)
-
-    # One batch of 80-station lanes: the free NACA 2412 sides, the same
-    # sides tripped at trip_x and the tripped solve's side-pair marches,
-    # each with its rounding ensemble (ue scaled by 1 + k 2^-23). On a
-    # free side a station where the Newton ends on either of two roots
-    # turns on rounding, so the kernel is held to the plain march there
-    # only up to the first station where the plain march's own ensemble
-    # spreads, and its x_transition must be one of the ensemble's. Tripped
-    # near the leading edge, a side has no laminar run to separate: its
-    # ensemble must not spread, and the kernel is held on every station
-    # (a main-path lane's last station may leave the Newton unconverged
-    # where ue falls steeply into the trailing edge, so there the
-    # ensemble may spread at that station alone).
     sides = _airfoil_sides(op, coupled, inviscid)
-    s, ue, x = sides
-    n_side, m = s.shape
-    n_main = main_sides[0].shape[0]
-    full = lambda v, n: torch.full((n,), v, device=dev)
-    lanes = [torch.cat(c) for c in zip(
-        (s, ue, x, full(1e-6, n_side), full(9.0, n_side),
-         full(1.0, n_side)),
-        (s, ue, x, full(1e-6, n_side), full(9.0, n_side),
-         full(trip_x, n_side)),
-        main_sides)]
-    k = len(ENSEMBLE_K)
-    scale = (1.0 + torch.tensor(ENSEMBLE_K, dtype=torch.float64)
-             * 2.0 ** -23).float().to(dev)
-    batch = [a.repeat_interleave(k, 0) for a in lanes]
-    batch[1] = batch[1] * scale.repeat(len(lanes[0]))[:, None]
-    batch = [a.contiguous() for a in batch]
-    t0 = time.perf_counter()
-    want = plain.march_side(*batch)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    got = mk.march_side(*batch)
-    torch.cuda.synchronize()
-    nominal = torch.arange(len(lanes[0]), device=dev) * k + k // 2
-    stop, exact = [], []
-    for lane in range(len(lanes[0])):
-        rows = slice(lane * k, (lane + 1) * k)
-        stop.append(ensemble_stop(
-            {f: getattr(want, f)[rows] for f in
-             ("theta", "dstar", "turb", "separated")}))
-        xtrs = set(want.x_transition[rows].tolist())
-        xk = float(got.x_transition[nominal[lane]])
-        require(xk in xtrs, f"lane {lane}: x_tr {xk} not in the plain "
-                f"ensemble's {sorted(xtrs)}")
-        if lane < n_side:
-            side = "upper" if lane % 2 == 0 else "lower"
-            log(f"[march] NACA 2412 side lane {lane} (alpha "
-                f"{5.0 * (lane // 2):g}, {side}): held on stations "
-                f"0..{stop[-1] - 1} of {m}; x_tr kernel "
-                f"{xk!r}, plain {float(want.x_transition[nominal[lane]])!r}, "
-                f"plain ensemble {sorted(xtrs)}")
-        else:
-            exact.append(len(xtrs) == 1)
-    tripped = stop[n_side:2 * n_side]
-    require(all(t == m for t in tripped),
-            f"tripped sides: the plain ensemble spreads at {tripped}")
-    require(min(stop[2 * n_side:]) >= m - 1 and all(exact),
-            f"main-path side lanes: the plain ensemble spreads at "
-            f"{stop[2 * n_side:]}")
-    worst_free = _hold_march(_rows(got, nominal[:n_side]),
-                             _rows(want, nominal[:n_side]),
-                             "NACA 2412 sides", stop[:n_side])
-    # The main path's side marches again at their own shape, one launch
-    # of 2 lanes each as the solve makes them: they are held to the plain
-    # march, and the lanes of a launch are independent, so each must also
-    # equal its lanes of the batch bit for bit.
-    det = nominal[n_side:]
-    main_rows = nominal[2 * n_side:]
-    own = type(got)(*(torch.cat(f) for f in zip(*(
-        mk.march_side(*c) for c in calls["march_side"][:n_trip]))))
-    require(_same_bits(own, _rows(got, main_rows)),
-            "main-path side marches: a 2-lane launch differs from its "
-            "lanes of the batch")
-    worst_det = max(
-        _hold_march(_rows(got, det[:n_side]), _rows(want, det[:n_side]),
-                    "tripped sides", stop[n_side:2 * n_side]),
-        _hold_march(own, _rows(want, main_rows),
-                    "main-path side marches", stop[2 * n_side:]))
-    require(torch.equal(got.x_transition[det], want.x_transition[det]),
-            "tripped x_transition differs")
-    worst = max(worst, worst_free, worst_det)
-    worst_sides = worst
-    log(f"[march] NACA 2412 sides tripped at {trip_x} (4 lanes) and the "
-        f"tripped default solve's {n_main // 2} side-pair marches "
-        f"({n_main} lanes; each also launched alone at 2 lanes, bit-equal "
-        f"to the batch): plain ensemble spread-free on all {m} stations "
-        f"in {sum(t == m for t in stop[n_side:])} of {n_side + n_main} "
-        f"lanes (else from station {m - 1}); kernel = plain there (rtol "
-        f"{MARCH_RTOL}, flags and x_transition identical), max abs "
-        f"{worst_det:.3e}; x_tr of the tripped sides "
-        f"{got.x_transition[det[:n_side]].tolist()}; plain call of "
-        f"{batch[0].shape[0]} lanes {t_plain:.2f} s")
-
-    # The wake marches, each with its plain ensemble. In an early pass of
-    # the free solve the wake's Hk can sit at its cap (10) and leave it at
-    # a station that turns on rounding, so a wake is held up to the first
-    # station where its plain ensemble spreads; the tripped solve's wakes
-    # must not spread. As the sides, each is held at its own shape (one
-    # launch of 1 lane), which must equal its nominal lane of the batch.
-    n_wl, mw = main_wake[0].shape
-    wb = [a.repeat_interleave(k, 0) for a in main_wake]
-    wb[1] = wb[1] * scale.repeat(n_wl)[:, None]
-    wb = [a.contiguous() for a in wb]
-    want_w = plain.march_wake(*wb)
-    got_w = mk.march_wake(*wb)
-    torch.cuda.synchronize()
-    wstop = [ensemble_stop({"theta": want_w[0][lane * k:(lane + 1) * k],
-                            "dstar": want_w[1][lane * k:(lane + 1) * k]},
-                           ("theta", "dstar")) for lane in range(n_wl)]
-    require(all(t == mw for t in wstop[:n_trip_w]),
-            f"tripped solve's wakes: the plain ensemble spreads at "
-            f"{wstop[:n_trip_w]}")
-    own_w = [torch.cat(f) for f in zip(*(
-        [a.reshape(-1, mw) for a in mk.march_wake(*c)]
-        for c in calls["march_wake"]))]
-    w_rows = torch.arange(n_wl, device=dev) * k + k // 2
-    require(_same_bits(own_w, [a[w_rows] for a in got_w]),
-            "main-path wake marches: a 1-lane launch differs from its lane "
-            "of the batch")
-    worst_w = 0.0
-    for lane, stop_l in enumerate(wstop):
-        row = lane * k + k // 2
-        for a, b, f in zip(own_w, want_w, ("theta", "dstar", "hk")):
-            a, b = a[lane, :stop_l], b[row, :stop_l]
-            d = (a - b).abs()
-            worst_w = max(worst_w, float(d.max()))
-            require(bool((d <= MARCH_RTOL * b.abs()).all()),
-                    f"main-path wake lane {lane} {f}: max rel "
-                    f"{float((d / b.abs()).max()):.3e}")
-    worst = max(worst, worst_w)
-    short = {lane: t for lane, t in enumerate(wstop) if t < mw}
-    log(f"[march] the two solves' {n_wl} wake marches ({mw} stations, "
-        f"{n_trip_w} tripped; each launched alone at 1 lane, bit-equal to "
-        f"the batch): kernel = plain (rtol {MARCH_RTOL}) on all "
-        f"stations of {n_wl - len(short)} lanes, and of the others "
-        f"(lane: first station where the plain ensemble spreads) up to "
-        f"{short}; max abs {worst_w:.3e}; largest abs difference of all "
-        f"march comparisons {worst:.3e}")
+    full = lambda v: torch.full((sides[0].shape[0],), v, device=dev)
+    naca = lambda xf: [*sides, full(1e-6), full(9.0), full(xf)]
+    held, batch = hold_recorded_marches(
+        dev, mk, plain,
+        [naca(trip_x)] + calls["march_side"][:n_trip] + [naca(1.0)],
+        calls["march_wake"], 1 + n_trip, n_trip_w,
+        f"NACA 2412 sides tripped at {trip_x}, the tripped default "
+        f"solve_viscous's side marches, the free sides; both solves' wakes",
+        te_tail=1, stage="march")
+    worst = max(worst, held["bl_march"])
+    worst_w = held["bl_march_wake"]
 
     # Physics anchors (tests/test_viscous.py:24-116) on the kernel alone.
     fp = mk.march_side(*args)
@@ -1136,7 +1074,41 @@ def phase_march(dev, mk, plain, coupled, inviscid, op, trip_x):
         f"{float(got_w[0][-1]):.6e}")
     require(mk.march_launches > before and mk.wake_launches > before_w,
             "march launch counters did not move")
-    return {"bl_march": worst_sides, "bl_march_wake": worst_w}, sides, batch
+    return {"bl_march": worst, "bl_march_wake": worst_w}, sides, batch
+
+
+def held_to_members(rec: dict, golden: dict, bars=None) -> list:
+    """What fails when ``rec`` is held to a Newton golden point: its
+    ``converged`` must be one of the rounding ensemble's, and each barred
+    field must lie within its bar of the range over the ensemble members
+    that share that ``converged`` (a member off in another basin widens
+    the range of only its own verdict)."""
+    bars = VISCOUS_BARS if bars is None else bars
+    members = [m for m in golden["members"]
+               if m["converged"] == rec["converged"]]
+    if not members:
+        return [f"converged {rec['converged']} not among the ensemble's "
+                f"{golden['ensemble']['converged']}"]
+    fails = []
+    for f, (abs_bar, rel_bar) in bars.items():
+        lo = min(m[f] for m in members)
+        hi = max(m[f] for m in members)
+        if not (lo - abs_bar - rel_bar * abs(lo) <= rec[f]
+                <= hi + abs_bar + rel_bar * abs(hi)):
+            fails.append(f"{f} {rec[f]!r} outside [{lo}, {hi}] +- bar")
+    return fails
+
+
+def merged_record(out) -> dict:
+    """A polar-point answer ((cl, cd, cdp, cm, converged, xtr_u, xtr_l,
+    sep), (newton_converged, state)) as the golden record's fields."""
+    merged, (nok, _state) = out
+    names = ("cl", "cd", "cdp", "cm", "converged", "xtr_upper", "xtr_lower",
+             "sep_fraction")
+    rec = {f: (bool(v) if f == "converged" else float(v))
+           for f, v in zip(names, merged)}
+    rec["newton_converged"] = bool(nok)
+    return rec
 
 
 def _viscous_record(r) -> dict:
@@ -1250,6 +1222,32 @@ def _median_s(fn, n: int = 10) -> float:
     return statistics.median(t)
 
 
+def side_march_bound(mk, plain, args) -> tuple:
+    """((ms, what bounds it), operations) of one side march call ``args``
+    (s, ue, x, then nu and the other per-lane parameters): its arrays and
+    three per-lane parameters read once and its outputs written once; the
+    operations of the plain march, which does the same at every interval,
+    counted over PROFILED_INTERVALS of them and scaled to the call's."""
+    s, ue, x, *params = args
+    out = mk.march_side(*args)
+    n_lanes, m = s.shape
+    cut = [a[..., :PROFILED_INTERVALS + 1].contiguous() for a in (s, ue, x)]
+    ops = count_ops(plain.march_side, *cut, *params) \
+        * (m - 1) / PROFILED_INTERVALS
+    return bound(nbytes(s, ue, x, *out) + 3 * 4 * n_lanes, ops), ops
+
+
+def wake_march_bound(mk, plain, w) -> tuple:
+    """As ``side_march_bound``, for one wake march call ``w`` (s, ue, nu,
+    theta0, dstar0, ctau0) of one lane."""
+    mw = w[0].shape[-1]
+    out = mk.march_wake(*w)
+    cut = [w[0][..., :PROFILED_INTERVALS + 1],
+           w[1][..., :PROFILED_INTERVALS + 1], *w[2:]]
+    ops = count_ops(plain.march_wake, *cut) * (mw - 1) / PROFILED_INTERVALS
+    return bound(nbytes(*w[:2], *out) + 4 * 4, ops), ops
+
+
 def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
                         batch):
     """Default solve and its split; one side-pair march at 80 stations and
@@ -1357,24 +1355,503 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
         f"plain {w_plain_ms:.1f} ms "
         f"(one call, host clock) ({card})")
 
-    # Bounds: bytes of the call's inputs and outputs; operations of the
-    # plain march, which does the same at every interval, counted over
-    # PROFILED_INTERVALS of them and scaled to the call's.
-    out = mk.march_side(s, ue, x, 1e-6)
-    n_lanes, m = s.shape
-    side_ops = count_ops(plain.march_side, *cut, 1e-6) \
-        * (m - 1) / PROFILED_INTERVALS
-    side_bound = bound(nbytes(s, ue, x, *out) + 3 * 4 * n_lanes, side_ops)
-    w_out = mk.march_wake(*w)
-    w_cut = [w[0][:PROFILED_INTERVALS + 1], w[1][:PROFILED_INTERVALS + 1],
-             *w[2:]]
-    wake_ops = count_ops(plain.march_wake, *w_cut) * (mw - 1) \
-        / PROFILED_INTERVALS
-    wake_bound = bound(nbytes(*w[:2], *w_out) + 4 * 4, wake_ops)
+    side_bound, side_ops = side_march_bound(mk, plain, [s, ue, x, 1e-6])
+    wake_bound, wake_ops = wake_march_bound(mk, plain, w)
     log(f"[viscous speed] bounds: side pair {side_bound[0] * 1e3:.3f} us "
         f"({side_ops:.4g} operations), wake {wake_bound[0] * 1e3:.3f} us "
         f"({wake_ops:.4g} operations), set by {side_bound[1]} and "
         f"{wake_bound[1]}")
+    return ({"bl_march": (k_ms, plain_ms, k_dev),
+             "bl_march_wake": (w_ms, w_plain_ms, w_dev)},
+            {"bl_march": side_bound, "bl_march_wake": wake_bound})
+
+
+# ── the simultaneous-Newton path ────────────────────────────────────────────
+NEWTON_POINT = ("2412", 4.0, 1e6)          # the speed phase's point
+TE_TAIL = 5     # trailing-edge stations where a tripped march may spread
+# The fields a march lane is held on: a station is held while the plain
+# march's rounding ensemble stays within MARCH_RTOL in each of them (cf
+# nears zero at separation, where only the ensemble tells rounding from
+# error).
+HELD_FIELDS = ("theta", "dstar", "hk", "cf", "turb", "separated")
+# solve_viscous_newton's defaults: stations a side, wake stations, warm
+# passes, LM iterations a round.
+NEWTON_SHAPE = {"n_stations": 96, "n_wake": 20, "warm_iters": 8,
+                "newton_iters": 12}
+
+
+def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
+                          n_strict_sides, n_strict_wakes, label,
+                          te_tail=TE_TAIL, stage="newton march"):
+    """The march kernels against the plain march on recorded main-path
+    calls: all side calls as the lanes of one batch, all wake calls as
+    those of another, each lane with the plain march's rounding ensemble
+    (ue scaled by 1 + k 2^-23). A lane is held (rtol MARCH_RTOL, flags
+    identical) up to the first station where its ensemble spreads, and its
+    x_transition must be one of the ensemble's; the lanes of the first
+    ``n_strict_sides`` side calls (tripped: no laminar knife edge) must
+    have one x_transition over the ensemble and may spread only in their
+    last ``te_tail`` stations, where ue falls steeply into the trailing
+    edge, those of the first ``n_strict_wakes`` wake calls not at all.
+    Each call is also launched at its own shape and must equal its lanes
+    of the batch bit for bit. Returns ({kernel: largest abs difference},
+    the batch of side lanes)."""
+    k = len(ENSEMBLE_K)
+    scale = (1.0 + torch.tensor(ENSEMBLE_K, dtype=torch.float64)
+             * 2.0 ** -23).float().to(dev)
+
+    def ensemble(lanes):
+        n = lanes[0].shape[0]
+        batch = [a.repeat_interleave(k, 0) for a in lanes]
+        batch[1] = batch[1] * scale.repeat(n)[:, None]
+        return [a.contiguous() for a in batch], n
+
+    batch, n_l = ensemble(_stack_calls(side_calls, 3))
+    m = batch[0].shape[1]
+    t0 = time.perf_counter()
+    want = plain.march_side(*batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    got = mk.march_side(*batch)
+    torch.cuda.synchronize()
+    nominal = torch.arange(n_l, device=dev) * k + k // 2
+    strict = sum(c[0].reshape(-1, m).shape[0]
+                 for c in side_calls[:n_strict_sides])
+    stop = []
+    for lane in range(n_l):
+        rows = slice(lane * k, (lane + 1) * k)
+        stop.append(ensemble_stop({f: getattr(want, f)[rows]
+                                   for f in HELD_FIELDS}, HELD_FIELDS))
+        xtrs = set(want.x_transition[rows].tolist())
+        xk = float(got.x_transition[nominal[lane]])
+        require(xk in xtrs, f"{label} side lane {lane}: x_tr {xk} not in "
+                f"the plain ensemble's {sorted(xtrs)}")
+        require(lane >= strict or (len(xtrs) == 1 and stop[-1] >= m - te_tail),
+                f"{label}: strict side lane {lane}: the plain ensemble "
+                f"spreads from station {stop[-1]} of {m}, x_tr {sorted(xtrs)}")
+    own = type(got)(*(torch.cat(f) for f in zip(*(
+        mk.march_side(*c) for c in side_calls))))
+    require(_same_bits(own, _rows(got, nominal)),
+            f"{label}: a side march at its own shape differs from its lanes "
+            f"of the batch")
+    worst = _hold_march(own, _rows(want, nominal), f"{label} sides", stop)
+
+    wb, n_wl = ensemble(_stack_calls(wake_calls, 2))
+    mw = wb[0].shape[1]
+    want_w = plain.march_wake(*wb)
+    got_w = mk.march_wake(*wb)
+    torch.cuda.synchronize()
+    wstop = [ensemble_stop({"theta": want_w[0][lane * k:(lane + 1) * k],
+                            "dstar": want_w[1][lane * k:(lane + 1) * k]},
+                           ("theta", "dstar")) for lane in range(n_wl)]
+    require(all(t == mw for t in wstop[:n_strict_wakes]),
+            f"{label}: strict wakes spread at {wstop[:n_strict_wakes]}")
+    own_w = [torch.cat(f) for f in zip(*(
+        [a.reshape(-1, mw) for a in mk.march_wake(*c)] for c in wake_calls))]
+    w_rows = torch.arange(n_wl, device=dev) * k + k // 2
+    require(_same_bits(own_w, [a[w_rows] for a in got_w]),
+            f"{label}: a wake march at its own shape differs from its lane "
+            f"of the batch")
+    worst_w = 0.0
+    for lane, stop_l in enumerate(wstop):
+        for a, b, f in zip(own_w, want_w, ("theta", "dstar", "hk")):
+            a, b = a[lane, :stop_l], b[w_rows[lane], :stop_l]
+            d = (a - b).abs()
+            worst_w = max(worst_w, float(d.max()) if d.numel() else 0.0)
+            require(bool((d <= MARCH_RTOL * b.abs()).all()),
+                    f"{label} wake lane {lane} {f}: max rel "
+                    f"{float((d / b.abs()).max()):.3e}")
+    log(f"[{stage}] {label}: {len(side_calls)} side marches ({n_l} "
+        f"lanes x {m} stations) and {len(wake_calls)} wake marches ({mw} "
+        f"stations), each with its plain rounding ensemble of {k} and "
+        f"launched alone at its own shape (bit-equal to the batch): side "
+        f"lanes spread-free on all stations {sum(t == m for t in stop)} of "
+        f"{n_l} (else held up to {[t for t in stop if t < m]}), wakes "
+        f"{sum(t == mw for t in wstop)} of {n_wl}; kernel = plain there "
+        f"(rtol {MARCH_RTOL}, flags and x_transition in the ensemble), max "
+        f"abs {worst:.3e} (sides), {worst_w:.3e} (wakes); plain batch call "
+        f"{t_plain:.2f} s")
+    return {"bl_march": worst, "bl_march_wake": worst_w}, batch
+
+
+def phase_newton_march(dev, mk, plain, newton, op, trip_x):
+    """Every march of a tripped and a free default Newton solve (NACA 2412,
+    the speed point) against the plain march; returns ({kernel: largest abs
+    difference}, one side call and one wake call of the free solve)."""
+    code, alpha, re = NEWTON_POINT
+    with recording(mk) as calls:
+        newton.solve_viscous_newton(op, alpha, re,
+                                    x_forced_transition=trip_x)
+        n_trip, n_trip_w = len(calls["march_side"]), len(calls["march_wake"])
+        newton.solve_viscous_newton(op, alpha, re)
+    per = NEWTON_SHAPE["warm_iters"] + 2
+    require(len(calls["march_side"]) == 2 * per
+            and len(calls["march_wake"]) == 2,
+            f"{len(calls['march_side'])} side and {len(calls['march_wake'])} "
+            f"wake marches in two Newton solves, want {2 * per} and 2")
+    worst, _batch = hold_recorded_marches(
+        dev, mk, plain, calls["march_side"], calls["march_wake"], n_trip,
+        n_trip_w, f"NACA {code} alpha {alpha:g} Newton solves tripped at "
+        f"{trip_x} and free")
+    return worst, calls["march_side"][n_trip], calls["march_wake"][-1]
+
+
+def _held(label, rec, golden, n_side, n_wake, want_side, secs):
+    fails = held_to_members(rec, golden)
+    if (n_side, n_wake) != (want_side, 1):
+        fails.append(f"{n_side} side and {n_wake} wake march launches, want "
+                     f"{want_side} and 1")
+    log(f"[newton] {label}: {json.dumps(rec)}; golden "
+        f"{json.dumps({f: golden[f] for f in rec})}; ensemble "
+        f"{json.dumps(golden['ensemble'])}; {n_side} + {n_wake} march "
+        f"launches, {secs:.3f} s {'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"{label}: {fails}")
+
+
+def phase_newton(dev, goldens, ops, newton, mk):
+    """The main path of this slice's solver: the default Newton solve at
+    each golden point, the polar point and both continuation solves from
+    the reference's donor state; returns {kernel: its launches}."""
+    mk.march_launches = 0
+    mk.wake_launches = 0
+    per = NEWTON_SHAPE["warm_iters"] + 2
+
+    def run(fn):
+        before = mk.march_launches, mk.wake_launches
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, mk.march_launches - before[0],
+                mk.wake_launches - before[1], time.perf_counter() - t0)
+
+    for g in goldens["newton"]:
+        r, n_s, n_w, secs = run(lambda: newton.solve_viscous_newton(
+            ops[g["naca"]], g["alpha"], g["re"]))
+        _held(f"solve_viscous_newton NACA {g['naca']} alpha {g['alpha']:g}",
+              _viscous_record(r), g, n_s, n_w, per, secs)
+    c = goldens["continuation"]["default"]
+    op = ops[c["naca"]]
+    out, n_s, n_w, secs = run(lambda: newton.solve_polar_point(
+        op, c["donor_alpha"], c["re"]))
+    _held(f"solve_polar_point alpha {c['donor_alpha']:g}", merged_record(out),
+          c["donor"], n_s, n_w, per, secs)
+    st = c["donor"]["state"]
+    donor = newton.state_from_numpy(st["zz"], st["xtr_u"], st["xtr_l"],
+                                    device=dev)
+    r, n_s, n_w, secs = run(lambda: newton.solve_viscous_newton_cont(
+        op, c["cont_alpha"], c["re"], *donor))
+    _held(f"solve_viscous_newton_cont alpha {c['donor_alpha']:g} -> "
+          f"{c['cont_alpha']:g} from the reference's donor",
+          _viscous_record(r), c["solve_viscous_newton_cont"], n_s, n_w, 3,
+          secs)
+    out, n_s, n_w, secs = run(lambda: newton.solve_polar_point_cont(
+        op, c["cont_alpha"], c["re"], *donor))
+    _held(f"solve_polar_point_cont alpha {c['donor_alpha']:g} -> "
+          f"{c['cont_alpha']:g} from the reference's donor",
+          merged_record(out), c["solve_polar_point_cont"], n_s, n_w, 3, secs)
+    return {"bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches}
+
+
+def newton_system(dev, newton, op):
+    """The Newton system at the speed point after its warm start, the start
+    state and the start damping."""
+    code, alpha, re = NEWTON_POINT
+    system, _sc, _ws, zz = newton._prepare(
+        op, alpha, re, 9.0, 1.0, NEWTON_SHAPE["n_stations"],
+        NEWTON_SHAPE["n_wake"], NEWTON_SHAPE["warm_iters"])
+    return system, zz, torch.full((), 1e-3, device=dev)
+
+
+def phase_lm_sync_free(dev, newton, op):
+    """One LM iteration at the speed point under
+    ``torch.cuda.set_sync_debug_mode("error")``: it must not synchronise
+    with the host (after one warm iteration, which fills the device
+    constant caches)."""
+    system, zz, lam = newton_system(dev, newton, op)
+    system.lm_step(zz, lam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zz2, lam2 = system.lm_step(zz, lam)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(zz2).all()) and float(lam2) > 0.0,
+            "LM iteration result")
+    log(f"[newton] one LM iteration ({zz.shape[0]} unknowns) ran under "
+        f"set_sync_debug_mode('error'): no host synchronisation; damping "
+        f"{float(lam):g} -> {float(lam2):g}")
+
+
+@contextlib.contextmanager
+def recorded_solvers(analyze_mod):
+    """Records (solver, alpha, converged) of every solver call that
+    ``analyze_airfoil`` makes."""
+    calls = []
+    names = ("solve_viscous_newton", "solve_polar_point",
+             "solve_polar_point_cont", "solve_viscous_newton_cont",
+             "solve_viscous")
+    originals = {n: getattr(analyze_mod, n) for n in names}
+
+    def wrap(name, fn):
+        def run(op, alpha, *args, **kwargs):
+            out = fn(op, alpha, *args, **kwargs)
+            conv = out[1][0] if name in ("solve_polar_point",
+                                         "solve_polar_point_cont") \
+                else out.converged
+            calls.append([name, float(alpha), bool(conv)])
+            return out
+        return run
+
+    for n, fn in originals.items():
+        setattr(analyze_mod, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in originals.items():
+            setattr(analyze_mod, n, fn)
+
+
+def _coefficients_held(c: dict, ens: dict) -> list:
+    fails = []
+    for key, f, (abs_bar, rel_bar) in (("CL", "cl", VISCOUS_BARS["cl"]),
+                                       ("CD", "cd", VISCOUS_BARS["cd"]),
+                                       ("Cm", "cm", VISCOUS_BARS["cm"])):
+        lo, hi = ens[f]
+        if not (lo - abs_bar - rel_bar * abs(lo) <= c[key]
+                <= hi + abs_bar + rel_bar * abs(hi)):
+            fails.append(f"{key} {c[key]} outside [{lo}, {hi}] +- bar")
+    if c["mode"] not in ens["mode"]:
+        fails.append(f"mode {c['mode']} not in {ens['mode']}")
+    return fails
+
+
+def _bl_schema(bl: dict, n: int) -> bool:
+    row = {"x", "y", "dstar", "theta", "cf", "H"}
+    return (set(bl) == {"upper", "lower", "transition_upper_x",
+                        "transition_lower_x"}
+            and len(bl["upper"]) == len(bl["lower"]) == n
+            and all(set(r) == row for r in bl["upper"] + bl["lower"])
+            and bl["upper"][0]["x"] > bl["upper"][-1]["x"]
+            and bl["lower"][0]["x"] < bl["lower"][-1]["x"]
+            and all(np.isfinite([r[k] for k in row]).all()
+                    for r in bl["upper"] + bl["lower"]))
+
+
+def phase_analyze(dev, goldens, polar, analyze_mod):
+    """``analyze_airfoil`` on the card at golden (d)'s alphas; returns
+    {alpha: wall seconds}."""
+    walls = {}
+    for g in goldens["analyze"]:
+        with recorded_solvers(analyze_mod) as calls:
+            t0 = time.perf_counter()
+            res = polar.analyze_airfoil(naca4_coords(2, 4, 12, g["coords"]),
+                                        g["re"], g["alpha"], device=dev)
+            walls[g["alpha"]] = time.perf_counter() - t0
+        c = res.coefficients
+        fails = []
+        if g["mode"] == "inviscid":
+            if (res.mode, res.strategy, res.bl_data) != ("inviscid", 3, None):
+                fails.append(f"mode {res.mode} strategy {res.strategy}")
+            if c.get("warning") != polar.INVISCID_WARNING or c["CD"] != 0.0:
+                fails.append(f"coefficients {c}")
+            for key in ("CL", "Cm"):
+                if abs(c[key] - g["coefficients"][key]) > 1e-4:
+                    fails.append(f"{key} {c[key]} vs {g['coefficients'][key]}")
+        else:
+            if res.mode != "viscous" or "warning" in c:
+                fails.append(f"mode {res.mode}, coefficients {c}")
+            fails += _coefficients_held(c, g["ensemble"])
+            if not (res.bl_data and _bl_schema(res.bl_data,
+                                               NEWTON_SHAPE["n_stations"])):
+                fails.append("bl_data schema")
+        if len(res.cp_x) != len(res.cp_values) != N_PANELS:
+            fails.append("cp length")
+        log(f"[analyze] NACA 2412 ({g['coords']} points a side) alpha "
+            f"{g['alpha']:g} Re {g['re']:g}: mode {res.mode}, strategy "
+            f"{res.strategy}, {c}; golden {g['coefficients']} (strategy "
+            f"{g['strategy']}); solver calls {calls}, the reference's "
+            f"{g['calls']}; {walls[g['alpha']]:.3f} s "
+            f"{'ok' if not fails else 'FAIL ' + str(fails)}")
+        require(not fails, f"analyze alpha {g['alpha']}: {fails}")
+    return walls
+
+
+def phase_upload(goldens, make_server, run_log_dir, stats, analyze_mod):
+    """``POST /upload_airfoil/`` on the port's server on the card with
+    golden (e)'s file; returns the request's wall seconds."""
+    g = goldens["upload"]
+    want = g["reply"]
+    httpd = make_server(host="127.0.0.1", port=0, rate_limit=False,
+                        device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    count0 = stats.get_analysis_count()
+    try:
+        with recorded_solvers(analyze_mod) as calls:
+            t0 = time.perf_counter()
+            status, body = _post(url + "/upload_airfoil/",
+                                 {"reynolds": g["reynolds"],
+                                  "alpha": g["alpha"]},
+                                 {"file": (g["filename"], g["dat"].encode())})
+            wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    fails = []
+    if status != 200 or set(body) != set(want):
+        fails.append(f"status {status}, keys {sorted(body)}")
+    else:
+        c = body["coefficients"]
+        fails += _coefficients_held(c, g["ensemble"])
+        for key in ("coords_before", "coords_after", "num_points",
+                    "parser_fixes"):
+            if body[key] != want[key]:
+                fails.append(f"{key} differs from the reference's")
+        if not np.allclose(body["cp_x"], want["cp_x"], rtol=1e-5, atol=1e-6):
+            fails.append("cp_x")
+        if c["mode"] == "viscous" and not _bl_schema(
+                body["bl_data"], NEWTON_SHAPE["n_stations"]):
+            fails.append("bl_data schema")
+    logs = os.listdir(run_log_dir)
+    count = stats.get_analysis_count()
+    if len(logs) != 1 or count != (count0 or 0) + 1:
+        fails.append(f"{len(logs)} run logs, analysis count {count0} -> "
+                     f"{count}")
+    log(f"[upload] POST /upload_airfoil/ ({g['filename']}, Re "
+        f"{g['reynolds']:g}, alpha {g['alpha']:g}) on the card: {status}, "
+        f"{body.get('coefficients')}; golden {want['coefficients']}, "
+        f"ensemble {g['ensemble']}; solver calls {calls}, the reference's "
+        f"{g['calls']}; {len(logs)} run log, analysis count "
+        f"{count}; {wall:.3f} s (HTTP round trip) "
+        f"{'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"upload: {fails}")
+    return wall
+
+
+def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
+                       wake_call):
+    """The Newton solve's profile at the speed point: wall time, rounds and
+    LM iterations, host synchronisations, device time and busy share; one
+    LM iteration's launches and device time, the batched Cholesky solves,
+    ``_reproject_n``'s station loop; the march kernels at the solve's
+    shapes. Returns ({kernel: (ms, plain ms, device ms)}, {kernel: (bound
+    ms, what bounds it)}) at those shapes."""
+    code, alpha, re = NEWTON_POINT
+    # The kernels first: late in a long process the profiler has dropped
+    # every record of a short window that followed the long traces below.
+    k_ms = cuda_ms(lambda: mk.march_side(*side_call), 50)
+    k_dev = device_ms(lambda: mk.march_side(*side_call), 20,
+                      "march_side_kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.march_side(*side_call)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    w_ms = cuda_ms(lambda: mk.march_wake(*wake_call), 50)
+    w_dev = device_ms(lambda: mk.march_wake(*wake_call), 20,
+                      "march_wake_kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.march_wake(*wake_call)
+    torch.cuda.synchronize()
+    w_plain_ms = (time.perf_counter() - t0) * 1e3
+    side_bound, side_ops = side_march_bound(mk, plain, side_call)
+    wake_bound, wake_ops = wake_march_bound(mk, plain, wake_call)
+    m, mw = side_call[0].shape[-1], wake_call[0].shape[-1]
+    log(f"[newton speed] the Newton solve's marches: side pair, 2 lanes x "
+        f"{m} stations: kernel {k_ms:.4f} ms (CUDA events, mean of 50; "
+        f"device {k_dev:.4f} ms), plain {plain_ms:.1f} ms (one call, host "
+        f"clock), bound {side_bound[0] * 1e3:.3f} us ({side_ops:.4g} "
+        f"operations, set by {side_bound[1]}); wake, 1 lane x {mw} stations: "
+        f"kernel {w_ms:.4f} ms (device {w_dev:.4f} ms), plain "
+        f"{w_plain_ms:.1f} ms, bound {wake_bound[0] * 1e3:.3f} us "
+        f"({wake_ops:.4g} operations, set by {wake_bound[1]}) ({card})")
+
+    def solve():
+        return newton.solve_viscous_newton(op, alpha, re)
+
+    solve()                                     # warm
+    n_lm = [0]
+    lm_step = newton._System.lm_step
+
+    def counted(self, zz, lam):
+        n_lm[0] += 1
+        return lm_step(self, zz, lam)
+
+    newton._System.lm_step = counted
+    try:
+        r = solve()
+        torch.cuda.synchronize()
+    finally:
+        newton._System.lm_step = lm_step
+    iters = NEWTON_SHAPE["newton_iters"]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solve()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    t_solve = _median_s(solve, 10)
+    with traced() as prof:
+        solve()
+    ev = kernel_events(prof, "march_side_kernel", "march_wake_kernel")
+    log(f"[newton speed] NACA {code} alpha {alpha:g} Re {re:g}, default "
+        f"solve_viscous_newton ({N_PANELS} panels, {json.dumps(NEWTON_SHAPE)}"
+        f", <= 4 rounds): median of 10, synchronised, {t_solve * 1e3:.3f} ms; "
+        f"{n_lm[0]} LM iterations ({n_lm[0] / iters:g} rounds), converged "
+        f"{bool(r.converged)}; {syncs} host synchronisations in a solve; "
+        f"profiled solve: {ev['all'][0]} device kernels, "
+        f"{ev['all'][1] / 1e3:.3f} ms of device time (march_side_kernel "
+        f"{ev['march_side_kernel'][0]} x, {ev['march_side_kernel'][1] / 1e3:.3f}"
+        f" ms; march_wake_kernel {ev['march_wake_kernel'][0]} x, "
+        f"{ev['march_wake_kernel'][1] / 1e3:.3f} ms); device busy "
+        f"{ev['all'][1] / 1e3 / (t_solve * 1e3):.1%} of the median wall "
+        f"({card})")
+
+    system, zz, lam = newton_system(dev, newton, op)
+    system.lm_step(zz, lam)
+    rms, jtj, jtr = system.normal_equations(zz)
+    ops = {"LM iteration": count_dispatches(system.lm_step, zz, lam),
+           "residual": count_dispatches(system.residual, zz),
+           "coloured Jacobian": count_dispatches(system.jacobian, zz),
+           "candidate steps": count_dispatches(system.candidate_steps, jtj,
+                                               jtr, lam),
+           "_reproject_n": count_dispatches(system.reproject_n, zz)}
+    log(f"[newton speed] torch operations dispatched: "
+        + ", ".join(f"{k} {v}" for k, v in ops.items()))
+    lm_wall = _median_s(lambda: system.lm_step(zz, lam), 10)
+    with traced() as prof:
+        system.lm_step(zz, lam)
+    ev_lm = kernel_events(prof)["all"]
+    chol_ms = cuda_ms(lambda: system.candidate_steps(jtj, jtr, lam), 20)
+    with traced() as prof:
+        system.candidate_steps(jtj, jtr, lam)
+    ev_chol = kernel_events(prof)["all"]
+    ne_wall = _median_s(lambda: system.normal_equations(zz), 10)
+    rep_wall = _median_s(lambda: system.reproject_n(zz), 10)
+    with traced() as prof:
+        system.reproject_n(zz)
+    ev_rep = kernel_events(prof)["all"]
+    log(f"[newton speed] one LM iteration: {lm_wall * 1e3:.3f} ms wall "
+        f"(median of 10, synchronised), {ev_lm[0]} device kernels, "
+        f"{ev_lm[1] / 1e3:.3f} ms of device time "
+        f"({ev_lm[1] / 1e3 / (lm_wall * 1e3):.1%} busy); of it the "
+        f"residual, the coloured Jacobian, J^T J and J^T r "
+        f"{ne_wall * 1e3:.3f} ms wall; the four damped {zz.shape[0]}^2 Cholesky "
+        f"solves (batched cholesky_ex, two triangular solves, clip) "
+        f"{chol_ms:.4f} ms (CUDA events, mean of 20), {ev_chol[0]} device "
+        f"kernels, {ev_chol[1] / 1e3:.4f} ms of device time; "
+        f"_reproject_n (a {NEWTON_SHAPE['n_stations'] - 1}-station loop of "
+        f"two lanes) "
+        f"{rep_wall * 1e3:.3f} ms wall, {ev_rep[0]} device kernels, "
+        f"{ev_rep[1] / 1e3:.3f} ms of device time ({card})")
+
     return ({"bl_march": (k_ms, plain_ms, k_dev),
              "bl_march_wake": (w_ms, w_plain_ms, w_dev)},
             {"bl_march": side_bound, "bl_march_wake": wake_bound})
@@ -1429,6 +1906,19 @@ def main() -> int:
         print(f"chip_smoke: airfoil_tpu_torch found at {pkg}, not in this "
               f"checkout ({ROOT})", file=sys.stderr)
         return 1
+    # The upload phase's run log and analysis counter go to a scratch
+    # directory of this run (the counter's path is read at import).
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    run_log_dir = os.path.join(work, "runs")
+    os.environ["AIRFOIL_TPU_RUN_LOG_DIR"] = run_log_dir
+    os.environ["AIRFOIL_TPU_STATS_PATH"] = os.path.join(work, "stats.db")
+    try:
+        return run(run_log_dir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(run_log_dir: str) -> int:
     from airfoil_tpu_torch import cuda_build
     from airfoil_tpu_torch.config import LBMConfig
     from airfoil_tpu_torch.api.handlers import parse_upload
@@ -1437,8 +1927,10 @@ def main() -> int:
     from airfoil_tpu_torch.lbm import core, diagnostics, kernel, masks
     from airfoil_tpu_torch.lbm.bench import bench_mlups
     from airfoil_tpu_torch.lbm.runner import WindTunnel
-    from airfoil_tpu_torch import inviscid, paneling
-    from airfoil_tpu_torch.viscous import coupled, march, wake
+    from airfoil_tpu_torch import inviscid, paneling, polar
+    from airfoil_tpu_torch.polar import analyze as analyze_mod
+    from airfoil_tpu_torch.utils import stats
+    from airfoil_tpu_torch.viscous import coupled, march, newton, wake
     from airfoil_tpu_torch.viscous import kernel as march_kernel
 
     dev = resolve_device("cuda")
@@ -1481,6 +1973,33 @@ def main() -> int:
     times.update(march_times)
     bounds.update(march_bounds)
 
+    # The simultaneous-Newton path: the solver, analyze_airfoil and the
+    # served upload.
+    ngold = load_goldens(NEWTON_GOLDENS)
+    op = ops["2412"]
+    newton_abs, side_call, wake_call = phase_newton_march(
+        dev, march_kernel, march, newton, op, goldens["trip_x"])
+    newton_launches = phase_newton(dev, ngold, ops, newton, march_kernel)
+    phase_lm_sync_free(dev, newton, op)
+    walls = phase_analyze(dev, ngold, polar, analyze_mod)
+    walls["upload"] = phase_upload(ngold, make_server, run_log_dir, stats,
+                                   analyze_mod)
+    newton_times, newton_bounds = phase_newton_speed(
+        card, dev, newton, op, march_kernel, march, side_call, wake_call)
+    log(f"[newton speed] wall: analyze_airfoil alpha 4 {walls[4.0]:.3f} s, "
+        f"alpha 19 {walls[19.0]:.3f} s; POST /upload_airfoil/ alpha 5 "
+        f"{walls['upload']:.3f} s ({card})")
+    newton_keys = {name: {
+        "newton_launches": newton_launches[name],
+        "newton_max_abs_err": newton_abs[name],
+        "newton_ms": newton_times[name][0],
+        "newton_device_ms": newton_times[name][2],
+        "newton_plain_ms": newton_times[name][1],
+        "newton_bound_ms": newton_bounds[name][0],
+        "newton_bound_by": newton_bounds[name][1]} for name in newton_abs}
+    for name, err in newton_abs.items():
+        max_abs[name] = max(max_abs[name], err)
+
     refused = [m for m in sys.modules
                if m.partition(".")[0] in ("jax", "airfoil_tpu")]
     require(not refused, f"the reference or jax was imported: {refused[:5]}")
@@ -1490,7 +2009,7 @@ def main() -> int:
         "ms": times[name][0], "device_ms": times[name][2],
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": None}
+        "library_ms": None, **newton_keys.get(name, {})}
         for name, (source, replaces) in KERNELS.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
-"""The port's wind-tunnel service (``airfoil_tpu_torch.api``) over real HTTP.
+"""The port's service (``airfoil_tpu_torch.api``) over real HTTP.
 
 The port's server runs on the CPU with an explicit ``device="cpu"``; the
 session lifecycle mirrors tests/test_api.py::TestLBM, and the response
-keys are held to the JAX server's for the same upload.
+keys are held to the JAX server's for the same upload. ``/upload_airfoil/``
+is held to the JAX handler: the same 400 answers, and through a stubbed
+``analyze_airfoil`` (the real one takes minutes on a CPU; the goldens and
+``chip_smoke.py`` hold it) the same 200 reply, run log and analysis count.
 """
 
 import base64
+import json
 import os
 import subprocess
 import sys
@@ -17,9 +21,14 @@ import pytest
 import requests
 import torch
 
+from airfoil_tpu.api import handlers as jax_handlers
 from airfoil_tpu.api.minihttp import make_server as make_jax_server
+from airfoil_tpu.polar.analyze import AnalysisResult as JaxAnalysisResult
 from airfoil_tpu.models import naca4
+from airfoil_tpu_torch.api import handlers as port_handlers
 from airfoil_tpu_torch.api.minihttp import NOT_PORTED, make_server
+from airfoil_tpu_torch.polar import AnalysisResult
+from airfoil_tpu_torch.utils import stats as port_stats
 from airfoil_tpu_torch.device import ENV_VAR, resolve_device
 from airfoil_tpu_torch.lbm.runner import WindTunnel
 
@@ -88,6 +97,129 @@ class TestBasics:
                               files={"file": ("a.dat", naca2412_dat)})
         assert r.status_code == 501
         assert "not yet ported" in r.json()["detail"]
+
+
+def _analysis(cls, mode="viscous"):
+    """A made-up analysis result of the given package's class."""
+    coeffs = {"CL": 0.7938, "CD": 0.007031, "CDp": 0.002151, "Cm": -0.0505,
+              "mode": mode}
+    bl = {"upper": [{"x": 1.0, "y": 0.001, "dstar": 0.004, "theta": 0.002,
+                     "cf": 0.003, "H": 2.0}],
+          "lower": [{"x": 0.0, "y": 0.0, "dstar": 1e-5, "theta": 5e-6,
+                     "cf": 0.05, "H": 2.2}],
+          "transition_upper_x": 0.31, "transition_lower_x": None}
+    return cls(cp_x=[0.0, 0.5, 1.0], cp_values=[1.0, -0.5, 0.1],
+               coefficients=coeffs, bl_data=bl, mode=mode, strategy=1,
+               converged=True, sep_fraction=0.0125)
+
+
+@pytest.fixture
+def stubbed_analysis(monkeypatch, tmp_path):
+    """Both packages' ``analyze_airfoil`` answering a made-up result, the
+    run logs under ``tmp_path`` and the port's counter in a fresh file;
+    yields the port's (alpha, device) calls."""
+    import airfoil_tpu.polar
+    import airfoil_tpu_torch.polar
+
+    calls = []
+
+    def port_stub(coords, reynolds, alpha, device=None):
+        calls.append((alpha, device))
+        return _analysis(AnalysisResult)
+
+    monkeypatch.setattr(airfoil_tpu_torch.polar, "analyze_airfoil", port_stub)
+    monkeypatch.setattr(airfoil_tpu.polar, "analyze_airfoil",
+                        lambda c, r, a: _analysis(JaxAnalysisResult))
+    monkeypatch.setenv("AIRFOIL_TPU_RUN_LOG_DIR", str(tmp_path / "runs"))
+    monkeypatch.setattr(port_stats, "_SQLITE_PATH", str(tmp_path / "s.db"))
+    monkeypatch.setattr(jax_handlers, "increment_analysis_count", lambda: 1)
+    yield calls
+
+
+class TestUpload:
+    @pytest.mark.parametrize("name,reynolds,alpha,kind,word", [
+        ("a.dat", 1e3, 5.0, "naca", "Reynolds"),
+        ("a.dat", 1e6, 45.0, "naca", "Alpha"),
+        ("a.txt", 1e6, 5.0, "naca", ".dat"),
+        ("a.dat", 1e6, 5.0, "double", "Multi-element"),
+        ("a.dat", 1e6, 5.0, "garbage", "Insufficient")])
+    def test_validation_answers(self, base_url, naca2412_dat, name, reynolds,
+                                alpha, kind, word):
+        """The 400 answers, equal to the JAX handler's."""
+        loop = naca4(2, 4, 12, 40)
+        content = {"naca": naca2412_dat, "garbage": b"not an airfoil at all",
+                   "double": "\n".join(
+                       f"{x:.6f} {y:.6f}"
+                       for x, y in np.concatenate([loop, loop])).encode()}[kind]
+        r = requests.post(base_url + "/upload_airfoil/",
+                          data={"reynolds": reynolds, "alpha": alpha},
+                          files={"file": (name, content)}, timeout=60)
+        assert r.status_code == 400 and word in r.json()["detail"]
+        with pytest.raises(jax_handlers.ApiError) as err:
+            jax_handlers.handle_upload(name, content, reynolds, alpha)
+        assert (err.value.status_code, err.value.detail) == \
+            (400, r.json()["detail"])
+
+    def test_missing_field(self, base_url, naca2412_dat):
+        r = requests.post(base_url + "/upload_airfoil/",
+                          data={"reynolds": 1e6},
+                          files={"file": ("a.dat", naca2412_dat)})
+        assert r.status_code == 400 and "alpha" in r.json()["detail"]
+
+    def test_reply_equals_the_jax_handlers(self, base_url, naca2412_dat,
+                                           stubbed_analysis):
+        r = requests.post(base_url + "/upload_airfoil/",
+                          data={"reynolds": 1e6, "alpha": 5.0},
+                          files={"file": ("naca2412.dat", naca2412_dat)},
+                          timeout=60)
+        assert r.status_code == 200, r.text
+        status, want = jax_handlers.handle_upload("naca2412.dat",
+                                                  naca2412_dat, 1e6, 5.0)
+        assert status == 200
+        assert r.json() == json.loads(json.dumps(want))
+        assert set(r.json()) == {
+            "success", "coords_before", "coords_after", "num_points",
+            "cp_x", "cp_values", "coefficients", "bl_data", "parser_fixes"}
+        # Solved on the server's device.
+        assert stubbed_analysis == [(5.0, torch.device("cpu"))]
+
+    def test_counts_and_logs_each_analysis(self, naca2412_dat, tmp_path,
+                                           stubbed_analysis):
+        for k in (1, 2):
+            port_handlers.handle_upload("naca2412.dat", naca2412_dat, 1e6,
+                                        5.0, device="cpu")
+            assert port_stats.get_analysis_count() == k
+            assert len(os.listdir(tmp_path / "runs")) == k
+
+    def test_write_run_log_equals_the_jax_one(self, tmp_path, monkeypatch):
+        logs = {}
+        for key, mod, cls in (("port", port_handlers, AnalysisResult),
+                              ("jax", jax_handlers, JaxAnalysisResult)):
+            monkeypatch.setenv("AIRFOIL_TPU_RUN_LOG_DIR", str(tmp_path / key))
+            mod._write_run_log("ab12cd34", "naca2412.dat", 1e6, 5.0, 121,
+                               ["closed the trailing edge"],
+                               _analysis(cls, "inviscid"), 1.25)
+            (name,) = os.listdir(tmp_path / key)
+            assert name.endswith("_ab12cd34.log")
+            logs[key] = (tmp_path / key / name).read_text()
+        assert logs["port"] == logs["jax"]
+        assert "mode: inviscid" in logs["port"]
+        monkeypatch.setenv("AIRFOIL_TPU_RUN_LOG_DIR", "")
+        port_handlers._write_run_log("x", "a.dat", 1e6, 5.0, 1, [],
+                                     _analysis(AnalysisResult), 0.1)
+        assert sorted(os.listdir(tmp_path)) == ["jax", "port"]
+
+    def test_stats_counter(self, tmp_path, monkeypatch):
+        monkeypatch.setattr(port_stats, "_SQLITE_PATH", str(tmp_path / "c.db"))
+        monkeypatch.delenv("DATABASE_URL", raising=False)
+        port_stats.init_db()
+        assert port_stats.get_analysis_count() == 0
+        assert [port_stats.increment_analysis_count() for _ in range(3)] \
+            == [1, 2, 3]
+        assert port_stats.get_analysis_count() == 3
+        monkeypatch.setattr(port_stats, "_SQLITE_PATH",
+                            str(tmp_path / "no" / "such" / "dir.db"))
+        assert port_stats.increment_analysis_count() is None   # no-op
 
 
 class TestLBM:
@@ -199,6 +331,21 @@ class TestRateLimit:
                      for _ in range(6)]
             assert codes[:5] == [400] * 5 and codes[5] == 429
             assert requests.get(url + "/health").status_code == 200
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+
+    def test_upload_limited(self):
+        """``/upload_airfoil/`` is a solve: 5 a minute from one address."""
+        httpd = make_server(host="127.0.0.1", port=0, device="cpu")
+        url = _serve(httpd)
+        try:
+            codes = [requests.post(url + "/upload_airfoil/",
+                                   data={"reynolds": 1e6, "alpha": 5.0},
+                                   files={"file": ("a.txt", b"bad")},
+                                   timeout=30).status_code
+                     for _ in range(6)]
+            assert codes[:5] == [400] * 5 and codes[5] == 429
         finally:
             httpd.shutdown()
             httpd.server_close()

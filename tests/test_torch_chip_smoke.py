@@ -192,3 +192,55 @@ def test_exits_without_a_card(tmp_path, alone):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _golden(members):
+    return {"members": members,
+            "ensemble": {"converged": sorted({m["converged"]
+                                              for m in members})}}
+
+
+def _member(conv, cl=0.65, cd=0.007):
+    return {"cl": cl, "cd": cd, "cm": -0.05, "xtr_upper": 0.4,
+            "xtr_lower": 0.9, "converged": conv}
+
+
+@pytest.mark.parametrize("rec, fails", [
+    (_member(True, 0.67), 0),               # inside the converged range
+    (_member(True, 0.70), 1),               # CL past its bar
+    (_member(True, 0.65, 0.0076), 1),       # CD more than 5% past the range
+    (_member(False, 0.20), 0),              # the unconverged member's range
+    (_member(True, 0.20), 1)])              # ... does not widen the other's
+def test_held_to_members(rec, fails):
+    """A Newton result is held to the range of the ensemble members that
+    share its ``converged``."""
+    g = _golden([_member(True, 0.64), _member(True, 0.66, 0.0072),
+                 _member(False, 0.20)])
+    assert len(chip_smoke.held_to_members(rec, g)) == fails
+    assert chip_smoke.held_to_members(rec, _golden([_member(not rec[
+        "converged"])]))                    # a verdict outside the set fails
+
+
+def test_merged_record():
+    out = ((0.5, 0.01, 0.004, -0.05, True, 0.3, 0.9, 0.0),
+           (torch.tensor(False), ("zz", 0.3, 0.9)))
+    rec = chip_smoke.merged_record(out)
+    assert rec["converged"] is True and rec["newton_converged"] is False
+    assert rec["xtr_lower"] == 0.9 and set(rec) == {
+        "cl", "cd", "cdp", "cm", "converged", "xtr_upper", "xtr_lower",
+        "sep_fraction", "newton_converged"}
+
+
+def test_count_dispatches():
+    x = torch.ones(4)
+    assert chip_smoke.count_dispatches(lambda a: (a * 2.0 + 1.0)[1:], x) == 3
+
+
+def test_bl_schema():
+    rows = lambda xs: [{"x": x, "y": 0.0, "dstar": 1e-3, "theta": 5e-4,
+                        "cf": 3e-3, "H": 2.0} for x in xs]
+    bl = {"upper": rows([1.0, 0.5, 0.0]), "lower": rows([0.0, 0.5, 1.0]),
+          "transition_upper_x": 0.3, "transition_lower_x": None}
+    assert chip_smoke._bl_schema(bl, 3)
+    assert not chip_smoke._bl_schema(bl, 4)
+    assert not chip_smoke._bl_schema({**bl, "upper": bl["lower"]}, 3)

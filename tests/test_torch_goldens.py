@@ -15,6 +15,10 @@ cannot go stale.
   their ensembles span under 1 % of each bar, with one ``converged``
   value. One of them (NACA 2412, alpha 5) re-runs through JAX and is held
   to the golden at the same bars.
+- ``tests/golden/torch_newton.json`` (``tests/make_torch_newton_goldens.py``)
+  covers exactly the points, shapes, alphas and upload its script lists,
+  every solve record with its whole rounding ensemble, and its upload is
+  the file ``chip_smoke.py``'s served session sends.
 """
 
 import json
@@ -24,11 +28,14 @@ import pytest
 
 import chip_smoke
 import make_torch_goldens as mg
+import make_torch_newton_goldens as mn
 from airfoil_tpu.inviscid import solve_inviscid
 from airfoil_tpu.models import naca4
 
 with open(mg.OUT) as fh:
     GOLDEN = json.load(fh)
+with open(mn.OUT) as fh:
+    NEWTON = json.load(fh)
 
 
 def test_goldens_cover_the_listed_points():
@@ -100,3 +107,52 @@ def test_tripped_golden_point_is_current():
     for f, (abs_bar, rel_bar) in chip_smoke.VISCOUS_BARS.items():
         assert abs(rec[f] - g[f]) <= abs_bar + rel_bar * abs(g[f]), f
     assert rec["converged"] == g["converged"]
+
+
+def _has_ensemble(rec: dict, flags=("converged",)) -> bool:
+    members = rec["members"]
+    return (len(members) == 1 + 2 * len(mn.ENSEMBLE_K)
+            and members[0] == {k: rec[k] for k in members[0]}
+            and set(rec["ensemble"]) == set(mn.FIELDS) | set(flags)
+            and all(rec["ensemble"][f] == [min(m[f] for m in members),
+                                           max(m[f] for m in members)]
+                    for f in mn.FIELDS))
+
+
+def test_newton_goldens_cover_the_listed_points():
+    assert NEWTON["ensemble_k"] == mn.ENSEMBLE_K
+    assert NEWTON["reduced_config"] == mn.REDUCED
+    for key, points in (("newton", mn.NEWTON),
+                        ("newton_reduced", mn.NEWTON_REDUCED)):
+        assert [(g["naca"], g["alpha"], g["re"]) for g in NEWTON[key]] == \
+            [(code, alpha, mn.RE) for code, alpha in points]
+        assert all(_has_ensemble(g) for g in NEWTON[key]), key
+    for name, shape in (("default", {}), ("reduced", mn.REDUCED)):
+        c = NEWTON["continuation"][name]
+        assert (c["shape"], c["donor_alpha"], c["cont_alpha"]) == \
+            (shape, mn.DONOR_ALPHA, mn.CONT_ALPHA)
+        assert _has_ensemble(c["donor"], ("converged", "newton_converged"))
+        assert _has_ensemble(c["solve_viscous_newton_cont"])
+        assert _has_ensemble(c["solve_polar_point_cont"],
+                             ("converged", "newton_converged"))
+        n = 96 if name == "default" else shape["n_stations"]
+        n_w = 20 if name == "default" else shape["n_wake"]
+        assert len(c["donor"]["state"]["zz"]) == 4 * (2 * n + n_w)
+    assert [a["alpha"] for a in NEWTON["analyze"]] == mn.ANALYZE
+    for a in NEWTON["analyze"]:
+        assert a["coords"] == mn.ANALYZE_COORDS and a["calls"]
+        assert len(a["cp_values"]) == len(a["cp_x"]) == mn.N_PANELS
+        assert ("ensemble" in a) == (a["mode"] == "viscous")
+    up = NEWTON["upload"]
+    assert (up["reynolds"], up["alpha"]) == (mn.UPLOAD["reynolds"],
+                                             mn.UPLOAD["alpha"])
+    assert up["status"] == 200 and up["reply"]["success"] is True
+    assert set(up["ensemble"]) >= {"cl", "cd", "cm", "mode", "strategy"}
+
+
+def test_newton_golden_upload_is_chip_smokes_file():
+    """The upload golden's file is the NACA 2412 that ``chip_smoke.py``'s
+    served session writes (the port's ``naca4``, 60 points a side)."""
+    dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
+                                      for x, y in chip_smoke.naca4_coords())
+    assert NEWTON["upload"]["dat"] == dat == mn.upload_dat()

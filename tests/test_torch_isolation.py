@@ -1,7 +1,8 @@
 """The port stands alone: ``airfoil_tpu_torch`` and ``chip_smoke.py`` import
 nothing of ``airfoil_tpu`` and no JAX, and the copies the port keeps of the
 reference's jax-free modules (``config``, ``geometry``, ``models.naca4``,
-the mask rasteriser, the static page) equal the reference's.
+the mask rasteriser, the static page, the analysis counter) equal the
+reference's.
 
 The first test runs a subprocess in which a meta-path finder refuses every
 ``airfoil_tpu`` and ``jax`` module; inside it every module of the port and
@@ -13,6 +14,7 @@ element.
 
 import dataclasses
 import glob
+import inspect
 import json
 import os
 import subprocess
@@ -26,11 +28,13 @@ from airfoil_tpu.api import handlers as ref_handlers
 from airfoil_tpu.geometry import parse_dat_text as ref_parse_dat_text
 from airfoil_tpu.lbm import masks as ref_masks
 from airfoil_tpu.models import naca4 as ref_naca4
+from airfoil_tpu.utils import stats as ref_stats
 from airfoil_tpu_torch import config
 from airfoil_tpu_torch.api import handlers, minihttp
 from airfoil_tpu_torch.geometry import AirfoilParseError, parse_dat_text
 from airfoil_tpu_torch.lbm import masks
 from airfoil_tpu_torch.models import naca4
+from airfoil_tpu_torch.utils import stats
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = sorted(glob.glob(os.path.join(
@@ -207,3 +211,22 @@ def test_static_page_is_a_copy():
         assert a.read() == b.read()
     assert os.path.dirname(os.path.dirname(minihttp._STATIC_APP)) == \
         os.path.join(ROOT, "airfoil_tpu_torch")
+
+
+@pytest.mark.parametrize("name", ["_pg_conn", "_sqlite_conn", "init_db",
+                                  "increment_analysis_count",
+                                  "get_analysis_count"])
+def test_stats_is_a_copy(name):
+    """The analysis counter is the reference's, function for function, with
+    the same environment variables and default file."""
+    assert inspect.getsource(getattr(stats, name)) == \
+        inspect.getsource(getattr(ref_stats, name))
+
+
+def test_stats_path():
+    env = dict(os.environ, AIRFOIL_TPU_STATS_PATH="/nowhere/s.db")
+    code = ("import json\nfrom airfoil_tpu.utils import stats as r\n"
+            "from airfoil_tpu_torch.utils import stats as p\n"
+            "print(json.dumps([p._SQLITE_PATH, r._SQLITE_PATH]))")
+    port_path, ref_path = _run(code, env)
+    assert port_path == ref_path == "/nowhere/s.db"

@@ -1,12 +1,13 @@
-"""Transport-independent API handlers: the wind-tunnel sessions and the
-single-point analysis (``/upload_airfoil/``).
+"""Transport-independent API handlers: the wind-tunnel sessions, the
+single-point analysis (``/upload_airfoil/``), the polar sweep
+(``/polar/``), the batch analysis (``/batch/``) and the analysis counter
+(``/stats``).
 
-Port of the parts of ``airfoil_tpu/api/handlers.py`` that those routes
-need. That module imports JAX at import time, so ``ApiError``,
-``parse_upload``, ``validate_envelope``, ``_write_run_log`` and
-``handle_upload`` are copied here; ``/health`` reports the torch device
-instead of a JAX backend, and ``handle_upload`` takes the device to solve
-on. ``start_warmup`` is not ported: it warms the reference's XLA compiles,
+Port of ``airfoil_tpu/api/handlers.py``. That module imports JAX at import
+time, so its handlers are copied here with the same validation, rounding
+and JSON keys; ``/health`` reports the torch device instead of a JAX
+backend, and the solving handlers take the device to solve on.
+``start_warmup`` is not ported: it warms the reference's XLA compiles,
 and the port compiles nothing ahead (its CUDA libraries build at first
 use). Handlers map parsed inputs to ``(status_code, payload_dict)``.
 """
@@ -31,13 +32,17 @@ from airfoil_tpu_torch.geometry import (
     parse_dat_text,
 )
 from airfoil_tpu_torch.device import resolve_device
-from airfoil_tpu_torch.utils.stats import increment_analysis_count
+from airfoil_tpu_torch.utils.stats import (
+    get_analysis_count,
+    increment_analysis_count,
+)
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "ApiError", "parse_upload", "validate_envelope", "handle_root",
-    "handle_health", "handle_upload", "LBMSessions",
+    "handle_health", "handle_upload", "handle_polar", "handle_batch",
+    "handle_stats", "LBMSessions",
 ]
 
 
@@ -179,6 +184,110 @@ def handle_upload(filename: str, content: bytes,
         "bl_data": result.bl_data,
         "parser_fixes": parser_fixes,
     }
+
+
+def handle_polar(filename: str, content: bytes, reynolds: float,
+                 alpha_start: float, alpha_end: float, alpha_step: float,
+                 device=None):
+    """``POST /polar/``: a whole polar on ``device`` (see
+    ``resolve_device``), one strategy reported per point."""
+    validate_envelope(reynolds, alpha_start)
+    validate_envelope(reynolds, alpha_end)
+    if not (0.1 <= alpha_step <= 5.0):
+        raise ApiError(400, "alpha_step must be in [0.1, 5]")
+    coords, parser_fixes = parse_upload(filename, content)
+    alphas = np.arange(alpha_start, alpha_end + 1e-6, alpha_step,
+                       dtype=np.float32)
+    if len(alphas) > 128:
+        raise ApiError(400, "Too many polar points (max 128)")
+
+    from airfoil_tpu_torch.polar import solve_polar
+
+    t0 = time.perf_counter()
+    res = solve_polar(np.asarray(coords, np.float32), alphas, reynolds,
+                      device=device)
+    dt = time.perf_counter() - t0
+    increment_analysis_count()
+    # "viscous_smoothed" is the reference's Strategy 2 (GDES SMOO).
+    mode_names = {0: "viscous", 1: "viscous_smoothed", 2: "inviscid"}
+    return 200, {
+        "success": True,
+        "num_points": len(coords),
+        "parser_fixes": parser_fixes,
+        "reynolds": reynolds,
+        "elapsed_seconds": round(dt, 4),
+        "polar": [
+            {
+                "alpha": float(res.alpha[i]),
+                "CL": round(float(res.cl[i]), 4),
+                "CD": round(float(res.cd[i]), 6),
+                "CDp": round(float(res.cdp[i]), 6),
+                "Cm": round(float(res.cm[i]), 4),
+                "mode": mode_names[int(res.mode[i])],
+                "converged": bool(res.converged[i]),
+                "xtr_upper": round(float(res.xtr_upper[i]), 4),
+                "xtr_lower": round(float(res.xtr_lower[i]), 4),
+                "sep_fraction": round(float(res.sep_fraction[i]), 4),
+            }
+            for i in range(len(alphas))
+        ],
+    }
+
+
+def handle_batch(files: list, reynolds: float, alpha: float, device=None):
+    """``POST /batch/``: at most 10 files, ``files`` a list of (filename,
+    content) pairs, solved as the lanes of one batched solve on
+    ``device``; a file that fails to parse gets an error row."""
+    validate_envelope(reynolds, alpha)
+    if not files:
+        raise ApiError(400, "No files uploaded")
+    if len(files) > 10:
+        raise ApiError(400, "At most 10 files per batch")
+
+    names, coords_list, fixes_list = [], [], []
+    errors = {}
+    for fname, content in files:
+        try:
+            coords, fixes = parse_upload(fname, content)
+            names.append(fname)
+            coords_list.append(np.asarray(coords, np.float32))
+            fixes_list.append(fixes)
+        except ApiError as e:
+            errors[fname] = e.detail
+
+    from airfoil_tpu_torch.polar import solve_batch
+
+    t0 = time.perf_counter()
+    rows = []
+    if coords_list:
+        res = solve_batch(coords_list, reynolds, alpha, device=device)
+        for i, name in enumerate(names):
+            rows.append({
+                "file": name,
+                "CL": round(float(res.cl[i]), 4),
+                "CD": round(float(res.cd[i]), 6),
+                "CDp": round(float(res.cdp[i]), 6),
+                "Cm": round(float(res.cm[i]), 4),
+                "converged": bool(res.converged[i]),
+                "xtr_upper": round(float(res.xtr_upper[i]), 4),
+                "xtr_lower": round(float(res.xtr_lower[i]), 4),
+                "parser_fixes": fixes_list[i],
+            })
+            increment_analysis_count()
+    dt = time.perf_counter() - t0
+    for name, detail in errors.items():
+        rows.append({"file": name, "error": detail})
+    return 200, {
+        "success": True,
+        "reynolds": reynolds,
+        "alpha": alpha,
+        "elapsed_seconds": round(dt, 4),
+        "results": rows,
+    }
+
+
+def handle_stats():
+    return 200, {"total_analyses": get_analysis_count()}
 
 
 def _b64_field(t: torch.Tensor) -> dict:

@@ -1,14 +1,14 @@
-"""Dependency-free HTTP server for the port: the single-point analysis
-and the wind-tunnel service.
+"""Dependency-free HTTP server for the port: the analyses and the
+wind-tunnel service.
 
 Port of ``airfoil_tpu/api/minihttp.py`` on the standard library's
 ``ThreadingHTTPServer``, with the same routes, per-IP rate limiter and
-multipart/form-data parser. ``/upload_airfoil/`` runs ``analyze_airfoil``
-on the server's device under the ``solve`` rate limit and the solver
-lock. It compiles nothing at start-up: the reference's ``start_warmup``
-warms XLA compiles, which the port does not have (its CUDA libraries build
-at first use). The routes whose solvers are not ported yet (``/polar/``,
-``/batch/`` and ``/stats``) answer 501. The page at ``/app`` is the port's
+multipart/form-data parser. ``/upload_airfoil/``, ``/polar/`` and
+``/batch/`` (N file parts named ``files``) solve on the server's device
+under the ``solve`` rate limit and the solver lock; ``GET /stats`` reads
+the analysis counter. It compiles nothing at start-up: the reference's
+``start_warmup`` warms XLA compiles, which the port does not have (its
+CUDA libraries build at first use). The page at ``/app`` is the port's
 byte copy of the reference's ``ui/static_app.html``.
 
 Run: ``python -m airfoil_tpu_torch.api.minihttp`` (port from ``$PORT``,
@@ -34,11 +34,10 @@ from airfoil_tpu_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["serve", "make_server", "NOT_PORTED"]
+__all__ = ["serve", "make_server"]
 
 _STATIC_APP = os.path.join(os.path.dirname(os.path.dirname(__file__)), "ui",
                            "static_app.html")
-NOT_PORTED = ("/polar/", "/batch/", "/stats")
 
 
 def _parse_multipart(body: bytes, content_type: str):
@@ -151,10 +150,6 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
             self.end_headers()
             self.wfile.write(data)
 
-        def _not_ported(self, path: str):
-            self._send_json(501, {"detail": f"{path} not yet ported to "
-                                            f"airfoil_tpu_torch"})
-
         def _body(self):
             length = int(self.headers.get("Content-Length", "0"))
             if length > config.MAX_FILE_SIZE + 1_000_000:
@@ -175,6 +170,15 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
             if not files.get(name):
                 raise ApiError(400, f"Missing file field '{name}'")
             return files[name][0]
+
+        @staticmethod
+        def _all_files(files):
+            """Every uploaded file part, preferring the repeated "files"
+            convention; else any field names (e.g. file0..fileN) in sorted
+            order."""
+            if files.get("files"):
+                return list(files["files"])
+            return [pair for k in sorted(files) for pair in files[k]]
 
         def _limited(self, kind: str) -> bool:
             """True (and responds 429) when the rate limit is exhausted."""
@@ -198,8 +202,8 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
                     if self._limited("health"):
                         return
                     self._send_json(*handlers.handle_health(sessions.device))
-                elif path in NOT_PORTED:
-                    self._not_ported(path)
+                elif path == "/stats":
+                    self._send_json(*handlers.handle_stats())
                 elif path in ("/app", "/app/"):
                     self._send_file(_STATIC_APP, "text/html; charset=utf-8")
                 else:
@@ -229,12 +233,8 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
         def do_POST(self):
             path = urlparse(self.path).path
             try:
-                if path in NOT_PORTED:
-                    self._body()  # drain, so the connection stays usable
-                    self._not_ported(path)
-                    return
-                if path in ("/upload_airfoil/", "/lbm/start") \
-                        and self._limited("solve"):
+                if path in ("/upload_airfoil/", "/polar/", "/batch/",
+                            "/lbm/start") and self._limited("solve"):
                     return
                 fields, files = self._form()
                 if path == "/upload_airfoil/":
@@ -242,6 +242,21 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
                     with solver_lock:
                         out = handlers.handle_upload(
                             name, content, _f(fields, "reynolds"),
+                            _f(fields, "alpha"), device=sessions.device)
+                elif path == "/polar/":
+                    name, content = self._file_field(files)
+                    with solver_lock:
+                        out = handlers.handle_polar(
+                            name, content, _f(fields, "reynolds"),
+                            _f(fields, "alpha_start"),
+                            _f(fields, "alpha_end"),
+                            _f(fields, "alpha_step", 1.0),
+                            device=sessions.device)
+                elif path == "/batch/":
+                    pairs = self._all_files(files)
+                    with solver_lock:
+                        out = handlers.handle_batch(
+                            pairs, _f(fields, "reynolds"),
                             _f(fields, "alpha"), device=sessions.device)
                 elif path == "/lbm/start":
                     name, content = self._file_field(files)

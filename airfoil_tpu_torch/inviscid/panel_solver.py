@@ -291,19 +291,26 @@ def solve_inviscid(
 
     ``sigma`` (optional, (N,)) are known transpiration source strengths
     from the boundary layer; ``None`` is the pure inviscid path.
+    ``alpha_deg`` may be a vector of A angles (a 1-D tensor or array): the
+    solution's arrays then carry a leading axis of A, one solve per angle
+    as ``vmap`` over alpha, by one multi-column LU solve.
     """
     pan = op.pan
-    uinf, vinf = _freestream(alpha_deg, pan.xm)
+    ca, sa = _freestream(alpha_deg, pan.xm)
+    uinf, vinf = (ca[:, None], sa[:, None]) if ca.dim() else (ca, sa)
 
     rhs_n = op.rhs_scale * -(uinf * pan.nx + vinf * pan.ny)
     if sigma is not None:
         rhs_n = rhs_n - op.bn @ sigma
-    rhs = torch.cat([rhs_n, rhs_n.new_zeros(1)])
+    rhs = torch.cat([rhs_n, rhs_n.new_zeros((*rhs_n.shape[:-1], 1))], -1)
 
-    gamma = _refined_solve(op.a_full, op.lu, op.piv, rhs)
-
-    vt = uinf * pan.tx + vinf * pan.ty
-    vt = vt + op.at_full @ gamma
+    if rhs.dim() > 1:
+        gamma = _refined_solve(op.a_full, op.lu, op.piv, rhs.T).T
+        vt = uinf * pan.tx + vinf * pan.ty + gamma @ op.at_full.T
+    else:
+        gamma = _refined_solve(op.a_full, op.lu, op.piv, rhs)
+        vt = uinf * pan.tx + vinf * pan.ty
+        vt = vt + op.at_full @ gamma
     if sigma is not None:
         vt = vt + op.bt @ sigma
 
@@ -311,17 +318,17 @@ def solve_inviscid(
 
     # dF = Cp * n_in * ds.
     ds = pan.length
-    fx = torch.sum(cp * pan.nx * ds)
-    fy = torch.sum(cp * pan.ny * ds)
-    cl = fy * uinf - fx * vinf
-    cd = fx * uinf + fy * vinf
+    fx = torch.sum(cp * pan.nx * ds, -1)
+    fy = torch.sum(cp * pan.ny * ds, -1)
+    cl = fy * ca - fx * sa
+    cd = fx * ca + fy * sa
     # Pitching moment about quarter chord, positive nose-up.
     xref, yref = 0.25, 0.0
     cm = -torch.sum(
-        cp * ds * ((pan.xm - xref) * pan.ny - (pan.ym - yref) * pan.nx))
+        cp * ds * ((pan.xm - xref) * pan.ny - (pan.ym - yref) * pan.nx), -1)
 
-    gam_avg = 0.5 * (gamma[:-1] + gamma[1:])
-    circulation = torch.sum(gam_avg * ds)
+    gam_avg = 0.5 * (gamma[..., :-1] + gamma[..., 1:])
+    circulation = torch.sum(gam_avg * ds, -1)
 
     return InviscidSolution(gamma, vt, cp, cl, cm, cd, circulation)
 

@@ -25,7 +25,9 @@ forward-mode dual type for the boundary-layer march.
   max(x, 0) + log1p(exp(-|x|)) (``torch.nn.functional.softplus`` instead
   returns x past its threshold), JVP exp(x - softplus(x)).
 - ``matvec``: ``a @ x`` over the last axis of ``x``, which may carry
-  leading batch axes or be a ``Dual``.
+  leading batch axes or be a ``Dual``; ``a`` may hold one matrix a lane.
+- ``take``: ``a[..., j]`` lane by lane (``torch.take_along_dim`` with
+  the leading axes broadcast).
 
 ``Dual`` carries a value ``v`` and K tangents ``t`` (K leading, so ``t``
 is (K, *v.shape)); arithmetic, comparisons and the functions above follow
@@ -42,8 +44,8 @@ import torch
 
 __all__ = ["Dual", "cat", "clip", "exp", "gradient", "interp", "log",
            "log10", "matvec", "maximum", "minimum", "nanmax", "nanmin",
-           "sigmoid", "softplus", "sqrt", "stack", "tanh", "value", "where",
-           "zeros_like"]
+           "sigmoid", "softplus", "sqrt", "stack", "take", "tanh", "value",
+           "where", "zeros_like"]
 
 # jnp.interp treats a segment as empty below this width.
 _DX_EPS = float(np.spacing(np.finfo(np.float32).eps))
@@ -304,43 +306,75 @@ def cat(xs, dim: int = -1):
 
 def matvec(a: torch.Tensor, x):
     """``a @ x`` for ``x`` (n,), (..., n) (each row a vector) or a
-    ``Dual``."""
+    ``Dual``; ``a`` (m, n), or (P, m, n), one matrix a lane, for ``x``
+    (..., P, n)."""
+    if a.dim() > 2:
+        if isinstance(x, Dual):
+            return Dual(_lane_matvec(a, x.v), _lane_matvec(a, x.t))
+        return _lane_matvec(a, x)
     if isinstance(x, Dual):
         return Dual(x.v @ a.mT, x.t @ a.mT)
     return a @ x if x.dim() == 1 else x @ a.mT
 
 
+def _lane_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("pij,...pj->...pi", a, x)
+
+
+def take(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """``a[..., j]`` lane by lane: ``torch.take_along_dim`` over the last
+    axis, the leading axes of ``a`` and ``j`` broadcast against each
+    other."""
+    if a.dim() < j.dim():
+        a = a.reshape((1,) * (j.dim() - a.dim()) + a.shape)
+    elif j.dim() < a.dim():
+        j = j.reshape((1,) * (a.dim() - j.dim()) + j.shape)
+    return torch.take_along_dim(a, j, -1)
+
+
+def _take_dual(f, j):
+    if isinstance(f, Dual):
+        return Dual(take(f.v, j), take(f.t, j))
+    return take(f, j)
+
+
 def interp(x, xp: torch.Tensor, fp):
-    """``jnp.interp(x, xp, fp)`` for 1-D increasing ``xp``; ``x`` a tensor
-    of any shape or a ``Dual``, ``fp`` a 1-D tensor or ``Dual``, or, with
-    a 1-D ``x``, a batch (..., len(xp)) of them (one interpolation a row,
-    as ``vmap`` over ``fp``)."""
-    n = xp.shape[0]
+    """``jnp.interp(x, xp, fp)`` for increasing ``xp``; ``x`` a tensor of
+    any shape or a ``Dual``, ``fp`` a 1-D tensor or ``Dual``, or a batch
+    (..., len(xp)) of them (one interpolation a row, as ``vmap`` over
+    ``fp``). With a lane axis: ``xp`` (n,) shared or (*L, n), one grid a
+    lane, ``x`` (*L, m) and ``fp`` (..., *L, n), the lanes aligned."""
+    n = xp.shape[-1]
     xv = value(x)
-    i = (xp <= xv.unsqueeze(-1)).sum(-1).clamp(1, n - 1)
-    rows = value(fp).dim() > 1
+    lanes = xp.dim() > 1
+    i = ((xp.unsqueeze(-2) if lanes else xp)
+         <= xv.unsqueeze(-1)).sum(-1).clamp(1, n - 1)
+    rows = lanes or value(fp).dim() > 1
 
     def at(a, j):      # a[j], written so that vmap never sees a 0-d index
         return a[j.reshape(-1)].reshape(j.shape)
 
-    x_lo, x_hi = at(xp, i - 1), at(xp, i)
     if rows:
-        f_lo, f_hi = fp[..., i - 1], fp[..., i]
+        x_lo, x_hi = take(xp, i - 1), take(xp, i)
+        f_lo, f_hi = _take_dual(fp, i - 1), _take_dual(fp, i)
         first, last = fp[..., :1], fp[..., -1:]
     else:
+        x_lo, x_hi = at(xp, i - 1), at(xp, i)
         f_lo, f_hi = at(fp, i - 1), at(fp, i)
         first, last = fp[0], fp[-1]
+    lo, hi = (xp[..., :1], xp[..., -1:]) if lanes else (xp[0], xp[-1])
     dx = x_hi - x_lo
     dx0 = dx.abs() <= _DX_EPS
     f = where(dx0, f_lo,
               f_lo + ((x - x_lo) / torch.where(dx0, 1.0, dx)) * (f_hi - f_lo))
-    f = where(xv < xp[0], first, f)
-    return where(xv > xp[-1], last, f)
+    f = where(xv < lo, first, f)
+    return where(xv > hi, last, f)
 
 
 def gradient(f: torch.Tensor) -> torch.Tensor:
-    """``jnp.gradient(f)`` of a 1-D tensor with unit spacing."""
-    return torch.gradient(f)[0]
+    """``jnp.gradient(f)`` with unit spacing along the last axis (a 1-D
+    tensor, or one row a lane)."""
+    return torch.gradient(f, dim=-1)[0]
 
 
 def _nan_reduce(x: torch.Tensor, fill: float, reduce) -> torch.Tensor:

@@ -3,5 +3,15 @@ from airfoil_tpu_torch.polar.analyze import (
     AnalysisResult,
     analyze_airfoil,
 )
+from airfoil_tpu_torch.polar.batch import BatchResult, solve_batch
+from airfoil_tpu_torch.polar.sweep import (
+    MODE_INVISCID,
+    MODE_VISCOUS,
+    MODE_VISCOUS_SMOOTHED,
+    PolarResult,
+    solve_polar,
+)
 
-__all__ = ["AnalysisResult", "INVISCID_WARNING", "analyze_airfoil"]
+__all__ = ["AnalysisResult", "BatchResult", "INVISCID_WARNING",
+           "MODE_INVISCID", "MODE_VISCOUS", "MODE_VISCOUS_SMOOTHED",
+           "PolarResult", "analyze_airfoil", "solve_batch", "solve_polar"]

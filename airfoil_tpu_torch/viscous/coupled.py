@@ -139,22 +139,25 @@ def _side_stations(pan, vt, s0, upper: bool, m: int):
 
 
 def _smooth_clip_derivative(xi, mval, clip_at=2.0):
-    """d(m)/d(xi), lightly smoothed (two 1-2-1 passes) and clipped: the
-    direct coupling iteration is only neutrally stable against short-wave
-    sigma modes."""
+    """d(m)/d(xi) along the last axis, lightly smoothed (two 1-2-1 passes)
+    and clipped: the direct coupling iteration is only neutrally stable
+    against short-wave sigma modes."""
     d = gradient(mval) / clip(gradient(xi), 1e-9)
     for _ in range(2):
-        d = torch.cat([d[:1], 0.25 * d[:-2] + 0.5 * d[1:-1] + 0.25 * d[2:],
-                       d[-1:]])
+        d = torch.cat([d[..., :1], 0.25 * d[..., :-2] + 0.5 * d[..., 1:-1]
+                       + 0.25 * d[..., 2:], d[..., -1:]], -1)
     return clip(d, -clip_at, clip_at)
 
 
 def _sigma_from_sides(pan, s0, xi_u, m_u, xi_l, m_l):
     """Per-side mass defect m = Ue*dstar -> panel source strengths
-    (smoothed-gradient variant of the direct iteration)."""
+    (smoothed-gradient variant of the direct iteration). With a lane axis
+    ``s0`` is (P,), the station arrays (P, M) and ``pan`` shared or one a
+    lane."""
     sig_u = _smooth_clip_derivative(xi_u, m_u)
     sig_l = _smooth_clip_derivative(xi_l, m_l)
-    s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
+    s_mid = 0.5 * (pan.s[..., :-1] + pan.s[..., 1:])
+    s0 = s0[..., None]
     xi_panel_u = clip(s0 - s_mid, 0.0)
     xi_panel_l = clip(s_mid - s0, 0.0)
     return torch.where(s_mid < s0, interp(xi_panel_u, xi_u, sig_u),
@@ -173,15 +176,17 @@ def _sigma_nodal_from_sides(pan, s0, xi_u, m_u, xi_l, m_l, clip_at=2.0):
     the station mass defects interpolated to the panel nodes (m(0) = 0 at
     the stagnation point), differenced per panel in the flow direction;
     the panel straddling the stagnation point emits both sides' outflow.
-    ``m_u``, ``m_l`` may carry leading batch axes or be ``Dual``s."""
+    ``m_u``, ``m_l`` may carry leading batch axes or be ``Dual``s; with a
+    lane axis ``s0`` is (P,) and the station arrays (P, M)."""
     s_nodes = pan.s
+    s0 = s0[..., None]
     m_up = interp(clip(s0 - s_nodes, 0.0), _with_zero(xi_u), _with_zero(m_u))
     m_lo = interp(clip(s_nodes - s0, 0.0), _with_zero(xi_l), _with_zero(m_l))
     m_nodes = nm.where(s_nodes < s0, m_up, m_lo)
-    ds = clip(s_nodes[1:] - s_nodes[:-1], 1e-9)
+    ds = clip(s_nodes[..., 1:] - s_nodes[..., :-1], 1e-9)
     dm = m_nodes[..., 1:] - m_nodes[..., :-1]
-    fully_upper = s_nodes[1:] <= s0
-    fully_lower = s_nodes[:-1] >= s0
+    fully_upper = s_nodes[..., 1:] <= s0
+    fully_lower = s_nodes[..., :-1] >= s0
     # The arc runs TE -> LE -> TE: sigma = -dm/ds on the upper side.
     sigma = nm.where(
         fully_upper, -dm / ds,
@@ -193,22 +198,25 @@ def _sigma_nodal_from_sides(pan, s0, xi_u, m_u, xi_l, m_l, clip_at=2.0):
 def _sigma_wake_nodal(wpan, xi_w, m_w, m_te, clip_at=2.0):
     """Panel-consistent wake sources, anchored at the TE with the merged
     body mass defect ``m_te`` (batch axes and ``Dual``s as above)."""
-    s_rel = wpan.s - wpan.s[0]
+    s_rel = wpan.s - wpan.s[..., :1]
     m_nodes = interp(s_rel, _with_zero(xi_w), nm.cat([m_te[..., None], m_w]))
-    ds = clip(s_rel[1:] - s_rel[:-1], 1e-9)
+    ds = clip(s_rel[..., 1:] - s_rel[..., :-1], 1e-9)
     return clip((m_nodes[..., 1:] - m_nodes[..., :-1]) / ds,
                 -clip_at, clip_at)
 
 
 def _forces_from_cp(pan, cp, alpha_deg):
-    """Integrate surface Cp to (cl, cm, cd_pressure)."""
+    """Integrate surface Cp to (cl, cm, cd_pressure); with a lane axis
+    ``cp`` is (P, N), ``alpha_deg`` (P,) and ``pan`` shared or one a
+    lane."""
     ds = pan.length
-    fx = torch.sum(cp * pan.nx * ds)
-    fy = torch.sum(cp * pan.ny * ds)
+    fx = torch.sum(cp * pan.nx * ds, -1)
+    fy = torch.sum(cp * pan.ny * ds, -1)
     ca, sa = _freestream(alpha_deg, cp)
     cl = fy * ca - fx * sa
     cdp = fx * ca + fy * sa
-    cm = -torch.sum(cp * ds * ((pan.xm - 0.25) * pan.ny - pan.ym * pan.nx))
+    cm = -torch.sum(cp * ds * ((pan.xm - 0.25) * pan.ny - pan.ym * pan.nx),
+                    -1)
     return cl, cm, cdp
 
 

@@ -17,12 +17,21 @@ which only the donor-ceiling gate reads.
 
 How it runs on the card:
 
+- P points solve side by side as lanes (``solve_polar_points``, the
+  reference's ``vmap`` of ``solve_polar_point``): the grid, ``vt0``, the
+  wake operator and the states carry a leading lane axis, the inviscid
+  operator is shared (a polar) or stacked one a lane (a batch of
+  geometries), and the per-lane setup is a host loop over the lanes whose
+  results are stacked. Every lane runs the same LM iterations a round; a
+  settled lane keeps its carry frozen, as under the reference's
+  ``while_loop``. The single-point entry points are the one-lane case.
 - Every residual function takes tensors with leading batch axes (the LM
-  candidates are one batch, as the reference's ``vmap``) or a
-  ``numerics.Dual``. The structured Jacobian is two residual evaluations on
-  ``Dual``s seeded with the 24 z-colours and the 6 ue-colours of
-  ``_seed_plan`` (``jax.jacfwd`` of ``r_of_cz``/``r_of_cu``), scattered
-  into the (4 S, 4 S) matrix, plus the interaction law's part through
+  candidates are one batch, as the reference's ``vmap``, in front of the
+  lanes) or a ``numerics.Dual``. The structured Jacobian is two residual
+  evaluations on ``Dual``s seeded with the 24 z-colours and the 6
+  ue-colours of ``_seed_plan`` (``jax.jacfwd`` of ``r_of_cz``/
+  ``r_of_cu``), scattered into the (4 S, 4 S) matrix, plus the
+  interaction law's part through
   ``l_mat``, the interaction operator's Jacobian over the station mass
   defects, built once a solve from one ``Dual`` evaluation.
 - One LM iteration (``_System.lm_step``) reads nothing back to the host:
@@ -30,13 +39,13 @@ How it runs on the card:
   matrix that is not positive definite set to NaN (JAX's Cholesky returns
   NaNs there, and the candidate then takes no step), two triangular
   solves, and the candidate chosen by ``torch.where``/``argmax`` on the
-  device. The only host reads of a solve are the round loop's ``done``,
+  device. The only host reads of a solve are the round loop's lane mask,
   once a round, and what the caller reads of the result.
-- The boundary-layer marches (the warm start's 2-lane side marches at the
-  solve's station count, the verdict's, and the fallback's wake march) go
-  through ``viscous.kernel``: the CUDA march kernel on a CUDA tensor, the
-  plain march on a CPU tensor. One solve makes ``warm_iters`` + 2 side
-  marches and one wake march.
+- The boundary-layer marches (the warm start's side marches of 2P lanes
+  at the solve's station count, the verdict's, and the fallback's wake
+  march of P lanes) go through ``viscous.kernel``: the CUDA march kernel
+  on a CUDA tensor, the plain march on a CPU tensor. One solve makes
+  ``warm_iters`` + 2 side marches and one wake march, whatever P.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from airfoil_tpu_torch.inviscid.panel_solver import (
     solve_inviscid,
 )
 from airfoil_tpu_torch.numerics import clip, maximum, minimum
+from airfoil_tpu_torch.paneling import Paneling
 from airfoil_tpu_torch.viscous import closures as cl
 from airfoil_tpu_torch.viscous import kernel
 from airfoil_tpu_torch.viscous.coupled import (
@@ -61,21 +71,20 @@ from airfoil_tpu_torch.viscous.coupled import (
     _at,
     _find_stagnation,
     _forces_from_cp,
-    _lane,
     _side_stations,
     _sigma_from_sides,
     _sigma_nodal_from_sides,
     _sigma_wake_nodal,
     _smooth_clip_derivative,
 )
-from airfoil_tpu_torch.viscous.march import wake_ctau0
+from airfoil_tpu_torch.viscous.march import BLState, wake_ctau0
 from airfoil_tpu_torch.viscous.wake import (
     WakeOperator,
     blend_te_continuity,
     build_wake_operator,
 )
 
-__all__ = ["solve_viscous_newton", "solve_polar_point",
+__all__ = ["solve_viscous_newton", "solve_polar_point", "solve_polar_points",
            "solve_viscous_newton_cont", "solve_polar_point_cont",
            "state_from_numpy"]
 
@@ -159,9 +168,11 @@ def _n_sat_gate(n, n_crit):
 
 
 def _interval_residuals(s, ue, z, nu, w, wake: bool, n_crit=9.0):
-    """Residuals of all intervals of one strip, (..., M-1, 4): momentum,
-    kinetic energy, shear lag, amplification. ``z`` (..., M, 4), ``ue`` and
-    ``w`` (..., M), ``s`` (M,)."""
+    """Residuals of all intervals of one strip, (..., *L, M-1, 4):
+    momentum, kinetic energy, shear lag, amplification. ``z``
+    (..., *L, M, 4), ``ue`` and ``w`` (..., *L, M), ``s`` (*L, M); ``nu``
+    and ``n_crit`` broadcast over the stations ((*L, 1)). ``L`` is the lane
+    shape: () for one point, (P,) for P points solved side by side."""
     theta = nm.exp(z[..., 0])
     m = nm.exp(z[..., 1])
     ctau = nm.exp(clip(z[..., 2], -20.0, 0.0))
@@ -170,7 +181,7 @@ def _interval_residuals(s, ue, z, nu, w, wake: bool, n_crit=9.0):
     hk, ret, hs, cf, cd = _station_closures(theta, dstar, ue, nu, ctau, w,
                                             wake)
 
-    ds = clip(s[1:] - s[:-1], 1e-8)
+    ds = clip(s[..., 1:] - s[..., :-1], 1e-8)
     due = ue[..., 1:] - ue[..., :-1]
     # The reference's interval weight: a float32 constant, so its
     # complement is formed in float32 too.
@@ -259,7 +270,8 @@ def _soft_floor(x, lo, beta=60.0):
 def _ue_raws_from_m(op, wop, grid, vt0, m_u, m_l, m_w):
     """Pre-floor station edge velocities, linear in the mass defects
     (modulo the rarely active source clip); ``m_*`` may carry leading batch
-    axes or be ``Dual``s."""
+    axes or be ``Dual``s. With lanes the grid, ``vt0`` and the wake
+    operator are one a lane and ``op`` shared or one a lane."""
     pan = op.pan
     sigma_b = _sigma_nodal_from_sides(
         pan, grid.s0, grid.xi_u, m_u, grid.xi_l, m_l)
@@ -267,8 +279,8 @@ def _ue_raws_from_m(op, wop, grid, vt0, m_u, m_l, m_w):
     sigma_w = _sigma_wake_nodal(wop.wpan, wop.xi, m_w, m_te)
     vt = (vt0 + nm.matvec(op.due_dsigma, sigma_b)
           + nm.matvec(wop.dvt_dsigw, sigma_w))
-    s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
-    s_in = s_mid[1:-1]
+    s_mid = 0.5 * (pan.s[..., :-1] + pan.s[..., 1:])
+    s_in = s_mid[..., 1:-1]
     vt_in = vt[..., 1:-1]
     raw_u = -nm.interp(grid.s_q_u, s_in, vt_in)
     raw_l = nm.interp(grid.s_q_l, s_in, vt_in)
@@ -293,17 +305,19 @@ def _ue_from_m(op, wop, grid, vt0, m_u, m_l, m_w):
 def _residual_given_ue(zz, ue_u, ue_l, ue_w, grid, nu, m_s, n_w,
                        n_crit, x_trip_u, x_trip_l):
     """System residual with the edge velocities as explicit arguments:
-    every row depends on the one or two stations of its own strip."""
+    every row depends on the one or two stations of its own strip. ``nu``,
+    ``n_crit`` and the trips are one a lane (*L)."""
     zu, zl, zw = _unpack(zz, m_s, n_w)
     batch = nm.value(zz).shape[:-1]
+    nu_c, nc_c = nu[..., None], n_crit[..., None]
 
-    w_u = _w_station(zu[..., 3], grid.xt_u, n_crit, x_trip_u)
-    w_l = _w_station(zl[..., 3], grid.xt_l, n_crit, x_trip_l)
+    w_u = _w_station(zu[..., 3], grid.xt_u, nc_c, x_trip_u[..., None])
+    w_l = _w_station(zl[..., 3], grid.xt_l, nc_c, x_trip_l[..., None])
 
     ones_w = torch.ones_like(grid.xi_w)
-    ru = _interval_residuals(grid.xi_u, ue_u, zu, nu, w_u, False, n_crit)
-    rl = _interval_residuals(grid.xi_l, ue_l, zl, nu, w_l, False, n_crit)
-    rw = _interval_residuals(grid.xi_w, ue_w, zw, nu, ones_w, True)
+    ru = _interval_residuals(grid.xi_u, ue_u, zu, nu_c, w_u, False, nc_c)
+    rl = _interval_residuals(grid.xi_l, ue_l, zl, nu_c, w_l, False, nc_c)
+    rw = _interval_residuals(grid.xi_w, ue_w, zw, nu_c, ones_w, True)
 
     # Initial conditions: Falkner-Skan stagnation similarity at station 0
     # of each surface, the laminar ctau pin and zero amplification.
@@ -323,8 +337,8 @@ def _residual_given_ue(zz, ue_u, ue_l, ue_w, grid, nu, m_s, n_w,
             z0[..., 3],
         ])
 
-    ric_u = side_ic(zu[..., 0, :], grid.xi_u[0], ue_u[..., 0])
-    ric_l = side_ic(zl[..., 0, :], grid.xi_l[0], ue_l[..., 0])
+    ric_u = side_ic(zu[..., 0, :], grid.xi_u[..., 0], ue_u[..., 0])
+    ric_l = side_ic(zl[..., 0, :], grid.xi_l[..., 0], ue_l[..., 0])
 
     # Wake initial conditions: thicknesses merge at the trailing edge; the
     # shear coefficient carries over theta-weighted.
@@ -488,13 +502,17 @@ def _plan_on(m_s: int, n_w: int, dev: torch.device) -> _Plan:
     return plan
 
 
-def _scalar(v, like: torch.Tensor) -> torch.Tensor:
-    """``v`` (a number or a tensor) as a 0-d float32 tensor on ``like``'s
-    device; a number is filled in on the device, not copied there (a copy
-    from the host would synchronise the stream)."""
+def _lane_vals(v, p: int, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number, a 0-d or (P,) tensor, or a sequence of P numbers)
+    as a (P,) float32 tensor on ``like``'s device; a number is filled in on
+    the device, not copied there (a copy from the host would synchronise
+    the stream)."""
     if isinstance(v, torch.Tensor):
-        return v.to(device=like.device, dtype=DTYPE)
-    return torch.full((), float(v), dtype=DTYPE, device=like.device)
+        return v.to(device=like.device, dtype=DTYPE).expand(p)
+    a = np.asarray(v, np.float32)
+    if a.ndim == 0:
+        return torch.full((p,), float(a), dtype=DTYPE, device=like.device)
+    return torch.as_tensor(a, device=like.device).expand(p)
 
 
 def _rms(r):
@@ -503,27 +521,39 @@ def _rms(r):
     return torch.sqrt(torch.mean(r * r, -1))
 
 
+def _seeded(b: torch.Tensor, lanes) -> torch.Tensor:
+    """Seed tangents (K, n) for every lane: (K, *lanes, n)."""
+    k, n = b.shape
+    return b.reshape(k, *[1] * len(lanes), n).expand(k, *lanes, n)
+
+
 class _System:
-    """The Newton system of one operating point: residual, structured
-    Jacobian, one LM iteration, the amplification re-projection. Every
-    method works on the device without reading it back."""
+    """The Newton system of one operating point, or of P points side by
+    side (every tensor with a leading lane axis: the grid, ``vt0`` and the
+    wake operator one a lane, ``nu``, ``n_crit`` and the trips (P,), the
+    states (P, n3)); ``op`` is shared by the lanes or stacked one a lane.
+    Residual, structured Jacobian, one LM iteration, the amplification
+    re-projection; every method works on the device without reading it
+    back."""
 
     def __init__(self, op, wop, grid, vt0, nu, m_s, n_w, n_crit,
                  x_trip_u, x_trip_l, zz_lin):
         self.op, self.wop, self.grid, self.vt0, self.nu = op, wop, grid, vt0, nu
         self.m_s, self.n_w = m_s, n_w
         self.n_crit, self.x_trip_u, self.x_trip_l = n_crit, x_trip_u, x_trip_l
+        self.lanes = tuple(vt0.shape[:-1])
         self.plan = _plan_on(m_s, n_w, vt0.device)
         # The interaction operator's Jacobian at the state the LM starts
         # from (for a continuation, the donor's), exact modulo the rarely
         # active derivative clip: one evaluation on a Dual over the
         # 2 m_s + n_w station mass defects.
         zu, zl, zw = _unpack(zz_lin, m_s, n_w)
-        m_lin = torch.cat([torch.exp(zu[:, 1]), torch.exp(zl[:, 1]),
-                           torch.exp(zw[:, 1])])
-        eye = torch.eye(m_lin.shape[0], dtype=m_lin.dtype,
+        m_lin = torch.cat([torch.exp(zu[..., 1]), torch.exp(zl[..., 1]),
+                           torch.exp(zw[..., 1])], -1)
+        eye = torch.eye(m_lin.shape[-1], dtype=m_lin.dtype,
                         device=m_lin.device)
-        self.l_mat = self.raws_of_m(nm.Dual(m_lin, eye)).t.T.contiguous()
+        self.l_mat = self.raws_of_m(nm.Dual(m_lin, _seeded(eye, self.lanes))
+                                    ).t.movedim(0, -1).contiguous()
 
     def raws_of_m(self, m_all):
         m_s = self.m_s
@@ -544,67 +574,78 @@ class _System:
 
     def jacobian(self, zz):
         """J = scatter(banded dR/dz) + scatter(banded dR/due) diag(softfloor')
-        L diag(m): 24 + 6 coloured tangents instead of a dense jacfwd."""
-        m_s, plan = self.m_s, self.plan
+        L diag(m): 24 + 6 coloured tangents instead of a dense jacfwd;
+        (*L, n3, n3)."""
+        m_s, plan, lanes = self.m_s, self.plan, self.lanes
         zu, zl, zw = _unpack(zz, m_s, self.n_w)
-        m_all = torch.cat([torch.exp(zu[:, 1]), torch.exp(zl[:, 1]),
-                           torch.exp(zw[:, 1])])
+        m_all = torch.cat([torch.exp(zu[..., 1]), torch.exp(zl[..., 1]),
+                           torch.exp(zw[..., 1])], -1)
         raws = self.raws_of_m(m_all)
         ues = _soft_floor(raws, plan.floors)
-        ue_u, ue_l, ue_w = ues[:m_s], ues[m_s:2 * m_s], ues[2 * m_s:]
+        ue_u, ue_l, ue_w = (ues[..., :m_s], ues[..., m_s:2 * m_s],
+                            ues[..., 2 * m_s:])
 
-        jbz = self._given_ue(nm.Dual(zz, plan.bz_t), ue_u, ue_l, ue_w).t.T
+        jbz = self._given_ue(nm.Dual(zz, _seeded(plan.bz_t, lanes)),
+                             ue_u, ue_l, ue_w).t.movedim(0, -1)
         bu = plan.bu_t
-        jbu = self._given_ue(zz, nm.Dual(ue_u, bu[:, :m_s]),
-                             nm.Dual(ue_l, bu[:, m_s:2 * m_s]),
-                             nm.Dual(ue_w, bu[:, 2 * m_s:])).t.T
+        jbu = self._given_ue(
+            zz, nm.Dual(ue_u, _seeded(bu[:, :m_s], lanes)),
+            nm.Dual(ue_l, _seeded(bu[:, m_s:2 * m_s], lanes)),
+            nm.Dual(ue_w, _seeded(bu[:, 2 * m_s:], lanes))).t.movedim(0, -1)
 
-        n3 = zz.shape[0]
-        jac = zz.new_zeros((n3, n3))
-        jac[plan.rows_z, plan.cols_z] = jbz[plan.rows_z, plan.seeds_z]
-        ju = zz.new_zeros((n3, m_all.shape[0]))
-        ju[plan.rows_u, plan.cols_u] = jbu[plan.rows_u, plan.seeds_u]
+        n3 = zz.shape[-1]
+        jac = zz.new_zeros((*lanes, n3, n3))
+        jac[..., plan.rows_z, plan.cols_z] = jbz[..., plan.rows_z,
+                                                 plan.seeds_z]
+        ju = zz.new_zeros((*lanes, n3, m_all.shape[-1]))
+        ju[..., plan.rows_u, plan.cols_u] = jbu[..., plan.rows_u,
+                                                plan.seeds_u]
 
         sfp = nm.sigmoid(_SF_BETA * (raws - plan.floors))
-        j_via_ue = (ju * sfp[None, :]) @ self.l_mat
-        jac[:, plan.var1_cols] += j_via_ue * m_all[None, :]
+        j_via_ue = (ju * sfp[..., None, :]) @ self.l_mat
+        jac[..., plan.var1_cols] += j_via_ue * m_all[..., None, :]
         return jac
 
     def normal_equations(self, zz):
         """(rms of the residual, J^T J, J^T r) at ``zz``."""
         r = self.residual(zz)
-        jac = self.jacobian(zz)
-        return _rms(r), jac.T @ jac, jac.T @ r
+        jt = self.jacobian(zz).mT
+        return _rms(r), jt @ jt.mT, (jt @ r[..., None])[..., 0]
 
     def candidate_steps(self, jtj, jtr, lam):
-        """The four damped steps, (4, n3): (J^T J + lam f D) dz = -J^T r by
-        a batched Cholesky and two triangular solves; clipped per variable
-        type, and 0 where a step is not finite (a failed factor is NaN)."""
+        """The four damped steps, (4, *L, n3): (J^T J + lam f D) dz = -J^T r
+        by a batched Cholesky and two triangular solves; clipped per
+        variable type, and 0 where a step is not finite (a failed factor is
+        NaN)."""
         plan = self.plan
-        diag = maximum(torch.diagonal(jtj), 1e-8)
-        a = jtj + torch.diag_embed((lam * plan.lam_factors)[:, None]
-                                   * diag[None, :])
+        diag = maximum(torch.diagonal(jtj, dim1=-2, dim2=-1), 1e-8)
+        factors = plan.lam_factors.reshape(4, *[1] * lam.dim())
+        a = jtj + torch.diag_embed((lam[None] * factors)[..., None]
+                                   * diag[None])
         # JAX's Cholesky reads the symmetrised matrix.
         chol, info = torch.linalg.cholesky_ex((a + a.mT) / 2.0)
-        chol = torch.where((info != 0)[:, None, None], torch.nan, chol)
-        rhs = (-jtr)[None, :, None].expand(chol.shape[0], -1, 1)
+        chol = torch.where((info != 0)[..., None, None], torch.nan, chol)
+        rhs = (-jtr)[None, ..., None].expand(*chol.shape[:-1], 1)
         y = torch.linalg.solve_triangular(chol, rhs, upper=False)
         dz = torch.linalg.solve_triangular(chol.mT, y, upper=True)[..., 0]
         dz = clip(dz, -plan.step_clip, plan.step_clip)
         return torch.where(torch.isfinite(dz).all(-1, keepdim=True), dz, 0.0)
 
     def lm_step(self, zz, lam):
-        """One Levenberg-Marquardt iteration: (zz, lam) -> (zz, lam)."""
+        """One Levenberg-Marquardt iteration: (zz, lam) -> (zz, lam), every
+        lane its own choice of candidate."""
         rms_here, jtj, jtr = self.normal_equations(zz)
         dzs = self.candidate_steps(jtj, jtr, lam)
-        rmss = _rms(self.residual(zz[None, :] + dzs))
+        rmss = _rms(self.residual(zz[None] + dzs))
         # Near-tie rule: among candidates within 1% of the best rms, the
         # gentlest damping (the first hit).
-        near = rmss <= torch.min(rmss) * 1.01
-        best = near.to(torch.int32).argmax().reshape(1)
-        accept = rmss.index_select(0, best)[0] < rms_here
-        zz = torch.where(accept, zz + dzs.index_select(0, best)[0], zz)
-        factor = self.plan.lam_factors.index_select(0, best)[0]
+        near = rmss <= torch.amin(rmss, 0) * 1.01
+        best = near.to(torch.int32).argmax(0)
+        accept = rmss.gather(0, best[None])[0] < rms_here
+        step = torch.take_along_dim(dzs, best[None, ..., None], 0)[0]
+        zz = torch.where(accept[..., None], zz + step, zz)
+        factor = self.plan.lam_factors.index_select(
+            0, best.reshape(-1)).reshape(best.shape)
         lam = clip(torch.where(accept, lam * factor / 3.0, lam * 64.0),
                    1e-7, 1e6)
         return zz, lam
@@ -616,71 +657,74 @@ class _System:
 
     def reproject_n(self, zz):
         """Exact re-integration of the amplification ODE over the iterate's
-        own profile, both sides as two lanes of one station loop (the
-        reference's scan per side); removes the n-rows' slow drift."""
+        own profile, both sides (and every lane) as lanes of one station
+        loop (the reference's scan per side); removes the n-rows' slow
+        drift."""
         grid, nu = self.grid, self.nu
         zu, zl, zw = _unpack(zz, self.m_s, self.n_w)
         ue_u, ue_l, _uw, _vt, _sb, _sw = _ue_from_m(
-            self.op, self.wop, grid, self.vt0, torch.exp(zu[:, 1]),
-            torch.exp(zl[:, 1]), torch.exp(zw[:, 1]))
+            self.op, self.wop, grid, self.vt0, torch.exp(zu[..., 1]),
+            torch.exp(zl[..., 1]), torch.exp(zw[..., 1]))
         z2 = torch.stack([zu, zl])
         ue = torch.stack([ue_u, ue_l])
         theta = maximum(torch.exp(z2[..., 0]), 1e-10)
         dstar = torch.exp(z2[..., 1]) / maximum(ue, 0.02)
         hk = clip(dstar / theta, 1.005, 12.0)
-        ret = maximum(ue * theta / nu, 1.0)
+        ret = maximum(ue * theta / nu[..., None], 1.0)
         rate = cl.amplification_rate(hk, theta, ret)
-        avg = _avg(rate[:, :-1], rate[:, 1:])
+        avg = _avg(rate[..., :-1], rate[..., 1:])
         dxi = maximum(torch.diff(torch.stack([grid.xi_u, grid.xi_l])), 1e-8)
-        n = torch.zeros_like(ue[:, 0])
+        n = torch.zeros_like(ue[..., 0])
         cols = [n]
         n_hi = self.n_crit + 3.0
         for k in range(self.m_s - 1):
-            n = n + avg[:, k] * _n_sat_gate(n, self.n_crit) * dxi[:, k]
+            n = n + avg[..., k] * _n_sat_gate(n, self.n_crit) * dxi[..., k]
             n = clip(n, 0.0, n_hi)
             cols.append(n)
         z2 = z2.clone()
-        z2[..., 3] = torch.stack(cols, 1)
+        z2[..., 3] = torch.stack(cols, -1)
         zw = zw.clone()
-        zw[:, 3] = 0.0
+        zw[..., 3] = 0.0
         return _pack(z2[0], z2[1], zw)
 
 
-def _warm_start(op, wop, grid, vt0, nu, n_crit, x_trip, m_s, n_w,
-                warm_iters: int, x_trip_lower=None):
+def _warm_start(op, wop, grid, vt0, nu, n_crit, trip_u, trip_l, m_s, n_w,
+                warm_iters: int):
     """Direct under-relaxed iterations that produce the Newton initial
-    state (``coupled.solve_viscous``'s loop, keeping the march arrays):
-    ``warm_iters`` + 1 two-lane side marches."""
+    state (``coupled.solve_viscous``'s loop, keeping the march arrays),
+    every lane at once: ``warm_iters`` + 1 side marches of 2P lanes (the
+    upper sides, then the lower ones)."""
     pan = op.pan
-    dtype, dev = pan.xm.dtype, pan.xm.device
-    if x_trip_lower is None:
-        x_trip_lower = x_trip
-    trips = torch.stack([_scalar(x_trip, pan.xm),
-                         _scalar(x_trip_lower, pan.xm)])
-    s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
+    p = vt0.shape[0]
+    sides = (torch.cat([grid.xi_u, grid.xi_l]),
+             torch.cat([grid.x_u, grid.x_l]))
+    nu2, nc2 = torch.cat([nu, nu]), torch.cat([n_crit, n_crit])
+    trips = torch.cat([trip_u, trip_l])
+    s_in = (0.5 * (pan.s[..., :-1] + pan.s[..., 1:]))[..., 1:-1]
 
     def one(sigma_b, sigma_w):
-        vt = vt0 + op.due_dsigma @ sigma_b + wop.dvt_dsigw @ sigma_w
-        ue_u = maximum(-nm.interp(grid.s_q_u, s_mid[1:-1], vt[1:-1]), 0.02)
-        ue_l = maximum(nm.interp(grid.s_q_l, s_mid[1:-1], vt[1:-1]), 0.02)
-        bl2 = kernel.march_side(torch.stack([grid.xi_u, grid.xi_l]),
-                                torch.stack([ue_u, ue_l]),
-                                torch.stack([grid.x_u, grid.x_l]),
-                                nu, n_crit, trips)
-        ue_w = wop.uw0 + wop.wb @ sigma_b + wop.ww @ sigma_w
+        vt = (vt0 + nm.matvec(op.due_dsigma, sigma_b)
+              + nm.matvec(wop.dvt_dsigw, sigma_w))
+        ue_u = maximum(-nm.interp(grid.s_q_u, s_in, vt[..., 1:-1]), 0.02)
+        ue_l = maximum(nm.interp(grid.s_q_l, s_in, vt[..., 1:-1]), 0.02)
+        bl2 = kernel.march_side(sides[0], torch.cat([ue_u, ue_l]), sides[1],
+                                nu2, nc2, trips)
+        ue_w = (wop.uw0 + nm.matvec(wop.wb, sigma_b)
+                + nm.matvec(wop.ww, sigma_w))
         ue_w = maximum(blend_te_continuity(
-            wop.xi, ue_w, 0.5 * (ue_u[-1] + ue_l[-1])), 0.05)
-        return _lane(bl2, 0), _lane(bl2, 1), ue_u, ue_l, ue_w
+            wop.xi, ue_w, 0.5 * (ue_u[..., -1:] + ue_l[..., -1:])), 0.05)
+        return (_lanes_of(bl2, slice(0, p)), _lanes_of(bl2, slice(p, None)),
+                ue_u, ue_l, ue_w)
 
     def wake_shape(bl_u, bl_l):
-        th0 = bl_u.theta[-1] + bl_l.theta[-1]
-        ds0 = bl_u.dstar[-1] + bl_l.dstar[-1] + grid.te_gap
-        hk_w = 1.0 + (ds0 / maximum(th0, 1e-10) - 1.0) * torch.exp(
+        th0 = bl_u.theta[..., -1] + bl_l.theta[..., -1]
+        ds0 = bl_u.dstar[..., -1] + bl_l.dstar[..., -1] + grid.te_gap
+        hk_w = 1.0 + (ds0 / maximum(th0, 1e-10) - 1.0)[..., None] * torch.exp(
             -grid.xi_w / 0.35)
-        return th0, hk_w
+        return th0[..., None], hk_w
 
-    sigma_b = torch.zeros(pan.xm.shape[0], dtype=dtype, device=dev)
-    sigma_w = torch.zeros(n_w, dtype=dtype, device=dev)
+    sigma_b = vt0.new_zeros((p, pan.xm.shape[-1]))
+    sigma_w = vt0.new_zeros((p, n_w))
     drel = None
     for _ in range(warm_iters):
         bl_u, bl_l, ue_u, ue_l, ue_w = one(sigma_b, sigma_w)
@@ -692,8 +736,8 @@ def _warm_start(op, wop, grid, vt0, nu, n_crit, x_trip, m_s, n_w,
         sw = torch.where(torch.isfinite(sw), sw, sigma_w)
         # Relative fixed-point residual: gates the warm trajectory's use as
         # a fallback result.
-        drel = (torch.mean(torch.abs(sb - sigma_b))
-                / maximum(torch.mean(torch.abs(sb)), 1e-8))
+        drel = (torch.mean(torch.abs(sb - sigma_b), -1)
+                / maximum(torch.mean(torch.abs(sb), -1), 1e-8))
         sigma_b = sigma_b + 0.35 * (sb - sigma_b)
         sigma_w = sigma_w + 0.35 * (sw - sigma_w)
     warm_settled = drel < 0.10
@@ -706,10 +750,10 @@ def _warm_start(op, wop, grid, vt0, nu, n_crit, x_trip, m_s, n_w,
         ct = torch.where(torch.isnan(bl.ctau), 1e-4, bl.ctau)
         # n from the march's amplification; a turbulent station starts just
         # past the crossing.
-        n = torch.where(torch.isnan(bl.amp), n_crit + 1.5,
-                        clip(bl.amp, 0.0, n_crit + 3.0))
+        n = torch.where(torch.isnan(bl.amp), n_crit[:, None] + 1.5,
+                        clip(bl.amp, 0.0, n_crit[:, None] + 3.0))
         return torch.stack([torch.log(theta), torch.log(m),
-                            torch.log(clip(ct, 1e-8, 0.3)), n], dim=1)
+                            torch.log(clip(ct, 1e-8, 0.3)), n], dim=-1)
 
     zu = side_init(bl_u, ue_u)
     zl = side_init(bl_l, ue_l)
@@ -719,11 +763,11 @@ def _warm_start(op, wop, grid, vt0, nu, n_crit, x_trip, m_s, n_w,
     m_wk = maximum(ue_w * hk_w * th0, 1e-9)
     ct_w = torch.full_like(grid.xi_w, 2e-3)
     zw = torch.stack([torch.log(maximum(t_w, 1e-9)), torch.log(m_wk),
-                      torch.log(ct_w), torch.zeros_like(t_w)], dim=1)
+                      torch.log(ct_w), torch.zeros_like(t_w)], dim=-1)
 
     def march_front(bl, x):
         # The march's own transition; its 'none' sentinel (the TE x) -> 2.
-        return torch.where(bl.x_transition < x[-1] - 1e-6,
+        return torch.where(bl.x_transition < x[..., -1] - 1e-6,
                            bl.x_transition, 2.0)
 
     warm_state = dict(sigma_b=sigma_b, sigma_w=sigma_w, bl_u=bl_u,
@@ -733,43 +777,50 @@ def _warm_start(op, wop, grid, vt0, nu, n_crit, x_trip, m_s, n_w,
             march_front(bl_l, grid.x_l), warm_state)
 
 
+def _lanes_of(bl: BLState, idx) -> BLState:
+    return BLState(*(a[idx] for a in bl))
+
+
 def _friction_drag(cf, ue, x):
     integrand = cf * ue ** 2
-    return torch.sum(0.5 * (integrand[1:] + integrand[:-1])
-                     * torch.abs(torch.diff(x)))
+    return torch.sum(0.5 * (integrand[..., 1:] + integrand[..., :-1])
+                     * torch.abs(torch.diff(x)), -1)
 
 
 def _fallback_scalars(op, wop, grid, vt0, ws, alpha_deg, nu, dtype,
                       cl_inv=None):
     """Polar-point scalars from the warm-start direct trajectory (wake
     march + Squire-Young + Cp forces), for points where Newton flags a
-    wrong basin: (cl, cd, cdp, cm, ok, xtr_u, xtr_l, sep_fraction)."""
+    wrong basin, one a lane: (cl, cd, cdp, cm, ok, xtr_u, xtr_l,
+    sep_fraction). One wake march of P lanes."""
     bl_u, bl_l = ws["bl_u"], ws["bl_l"]
     ue_u, ue_l, ue_w = ws["ue_u"], ws["ue_l"], ws["ue_w"]
     sigma_b, sigma_w = ws["sigma_b"], ws["sigma_w"]
 
-    vt = vt0 + op.due_dsigma @ sigma_b + wop.dvt_dsigw @ sigma_w
+    vt = (vt0 + nm.matvec(op.due_dsigma, sigma_b)
+          + nm.matvec(wop.dvt_dsigw, sigma_w))
     cp = 1.0 - vt * vt
     cl_c, cm, _cdp_raw = _forces_from_cp(op.pan, cp, alpha_deg)
 
-    th0 = bl_u.theta[-1] + bl_l.theta[-1]
-    ds0 = bl_u.dstar[-1] + bl_l.dstar[-1] + grid.te_gap
+    th0 = bl_u.theta[..., -1] + bl_l.theta[..., -1]
+    ds0 = bl_u.dstar[..., -1] + bl_l.dstar[..., -1] + grid.te_gap
 
-    ct0 = wake_ctau0(bl_u, bl_l, th0, ds0, 0.5 * (ue_u[-1] + ue_l[-1]), nu)
+    ct0 = wake_ctau0(bl_u, bl_l, th0, ds0,
+                     0.5 * (ue_u[..., -1] + ue_l[..., -1]), nu)
     th_w, _ds_w, hk_w = kernel.march_wake(wop.xi, ue_w, nu, th0, ds0, ct0)
 
-    h_end = clip(hk_w[-1], 1.0, 2.5)
-    ue_end = clip(ue_w[-1], 0.2, 1.5)
-    cd = 2.0 * th_w[-1] * ue_end ** (0.5 * (h_end + 5.0))
+    h_end = clip(hk_w[..., -1], 1.0, 2.5)
+    ue_end = clip(ue_w[..., -1], 0.2, 1.5)
+    cd = 2.0 * th_w[..., -1] * ue_end ** (0.5 * (h_end + 5.0))
 
     cdf = (_friction_drag(bl_u.cf, ue_u, grid.x_u)
            + _friction_drag(bl_l.cf, ue_l, grid.x_l))
     cdp = cd - cdf
 
-    sep = 0.5 * (torch.mean(bl_u.separated.to(dtype))
-                 + torch.mean(bl_l.separated.to(dtype)))
+    sep = 0.5 * (torch.mean(bl_u.separated.to(dtype), -1)
+                 + torch.mean(bl_l.separated.to(dtype), -1))
     finite = (torch.isfinite(cl_c) & torch.isfinite(cd)
-              & torch.isfinite(sigma_b).all())
+              & torch.isfinite(sigma_b).all(-1))
     cd_lo = 1.0 / torch.sqrt(1.0 / nu)
     cd_hi = 0.25 * (1.0 / nu) ** -0.2
     ok = (finite & (sep < 0.25) & (cd > cd_lo) & (cd < cd_hi)
@@ -785,7 +836,8 @@ def _fallback_scalars(op, wop, grid, vt0, ws, alpha_deg, nu, dtype,
 def state_from_numpy(zz, xtr_u, xtr_l, device=None):
     """A donor state (zz, x_tr upper, x_tr lower) of the reference's
     ``solve_polar_point``, as numpy, on the port's device (see
-    ``resolve_device``): what a continuation solve starts from."""
+    ``resolve_device``): what a continuation solve starts from. With a
+    leading lane axis, one donor a lane."""
     dev = resolve_device(device)
     return tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
                  for a in (zz, xtr_u, xtr_l))
@@ -799,7 +851,7 @@ def _trip_coord(x):
 
 def _point_grid(op: InviscidOperator, alpha, n_stations: int, n_wake: int):
     """The inviscid solution at ``alpha`` (a tensor), the wake operator and
-    the station grid frozen at the inviscid stagnation point."""
+    the station grid frozen at the inviscid stagnation point: one point."""
     pan = op.pan
     sol0 = solve_inviscid(op, alpha)
     vt0 = sol0.vt
@@ -818,27 +870,72 @@ def _point_grid(op: InviscidOperator, alpha, n_stations: int, n_wake: int):
     return sol0, wop, grid
 
 
-def _prepare(op: InviscidOperator, alpha_deg, reynolds, n_crit,
-             x_forced_transition, n_stations, n_wake, warm_iters,
-             init_state=None, x_trip_lower=None):
-    """The point's inviscid solution, station grid, warm start and Newton
-    system: (system, scalars, warm state, start state)."""
-    pan = op.pan
-    alpha = _scalar(alpha_deg, pan.xm)
-    re = _scalar(reynolds, pan.xm)
+def _stack(trees):
+    """Stack a sequence of equal NamedTuples of tensors field by field."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(trees))
+    return type(first)(*(_stack(f) for f in zip(*trees)))
+
+
+class _LaneOps(NamedTuple):
+    """What the lane solve reads of P operators stacked one a lane."""
+
+    pan: Paneling
+    due_dsigma: torch.Tensor
+
+
+def _lane_setup(op, alphas: torch.Tensor, n_stations: int, n_wake: int):
+    """Every lane's inviscid solution, wake operator and station grid (a
+    host loop over the lanes, its results stacked): (operators one a lane
+    or shared, inviscid CL (P,), vt0 (P, N), wake operator, grid)."""
+    shared = isinstance(op, InviscidOperator)
+    ops = [op] * alphas.shape[0] if shared else list(op)
+    if len(ops) != alphas.shape[0]:
+        raise ValueError(f"{len(ops)} operators for {alphas.shape[0]} lanes")
+    points = [_point_grid(o, alphas[i], n_stations, n_wake)
+              for i, o in enumerate(ops)]
+    sols, wops, grids = zip(*points)
+    lane_op = op if shared else _LaneOps(
+        _stack([o.pan for o in ops]), torch.stack([o.due_dsigma
+                                                   for o in ops]))
+    return (lane_op, torch.stack([s.cl for s in sols]),
+            torch.stack([s.vt for s in sols]), _stack(wops), _stack(grids))
+
+
+def _n_lanes(op, alphas) -> int:
+    if not isinstance(op, InviscidOperator):
+        return len(op)
+    if isinstance(alphas, torch.Tensor):
+        return max(alphas.numel(), 1)
+    return max(int(np.size(alphas)), 1)
+
+
+def _prepare(op, alpha_deg, reynolds, n_crit, x_forced_transition,
+             n_stations, n_wake, warm_iters, init_state=None,
+             x_trip_lower=None):
+    """The lanes' inviscid solutions, station grids, warm start and Newton
+    system: (system, scalars, warm state, start state). ``op`` is one
+    operator (shared by every lane) or a sequence of P; the other
+    arguments are numbers, 0-d tensors or one value a lane; the start
+    state ``init_state`` is (zz (P, n3), ...)."""
+    p = _n_lanes(op, alpha_deg)
+    like = (op if isinstance(op, InviscidOperator) else op[0]).pan.xm
+
+    def lanes(v):
+        return _lane_vals(v, p, like)
+
+    alpha, re, n_crit_t = lanes(alpha_deg), lanes(reynolds), lanes(n_crit)
     nu = 1.0 / re
-    m_s, n_w = n_stations, n_wake
-    sol0, wop, grid = _point_grid(op, alpha, m_s, n_w)
-    vt0 = sol0.vt
-
-    n_crit_t = _scalar(n_crit, pan.xm)
-    zz0, xtr_u_march, xtr_l_march, warm_state = _warm_start(
-        op, wop, grid, vt0, nu, n_crit_t, x_forced_transition, m_s, n_w,
-        warm_iters, x_trip_lower=x_trip_lower)
-
-    x_trip_t = _scalar(x_forced_transition, pan.xm)
+    x_trip_t = lanes(x_forced_transition)
     x_trip_lo_t = (x_trip_t if x_trip_lower is None
-                   else _scalar(x_trip_lower, pan.xm))
+                   else lanes(x_trip_lower))
+    m_s, n_w = n_stations, n_wake
+    lane_op, cl_inv, vt0, wop, grid = _lane_setup(op, alpha, m_s, n_w)
+
+    zz0, xtr_u_march, xtr_l_march, warm_state = _warm_start(
+        lane_op, wop, grid, vt0, nu, n_crit_t, x_trip_t, x_trip_lo_t, m_s,
+        n_w, warm_iters)
 
     # Per-side trip ceiling: the user trip, tightened to the warm march's
     # own front plus a slack proportional to it (closes the all-laminar
@@ -849,92 +946,120 @@ def _prepare(op: InviscidOperator, alpha_deg, reynolds, n_crit,
     x_trip_u_t = minimum(x_trip_t, ceiling(xtr_u_march))
     x_trip_l_t = minimum(x_trip_lo_t, ceiling(xtr_l_march))
 
-    zz_i = zz0 if init_state is None else init_state[0]
-    system = _System(op, wop, grid, vt0, nu, m_s, n_w, n_crit_t,
+    zz_i = zz0 if init_state is None else init_state[0].reshape(p, -1)
+    system = _System(lane_op, wop, grid, vt0, nu, m_s, n_w, n_crit_t,
                      x_trip_u_t, x_trip_l_t, zz_i)
-    scalars = dict(alpha=alpha, re=re, nu=nu, sol0=sol0, x_trip=x_trip_t,
+    scalars = dict(alpha=alpha, re=re, nu=nu, cl_inv=cl_inv, x_trip=x_trip_t,
                    x_trip_lo=x_trip_lo_t)
     return system, scalars, warm_state, zz_i
 
 
-def _solve_viscous_newton_impl(op, alpha_deg, reynolds, n_crit,
-                               x_forced_transition, n_stations, n_wake,
-                               warm_iters, newton_iters, outer_rounds,
-                               init_state=None, x_trip_lower=None):
+def _lm_rounds(system, zz_i, newton_iters: int, outer_rounds: int):
+    """Up to ``outer_rounds`` restart rounds of ``newton_iters`` LM
+    iterations, the damping floor re-applied between rounds, with the
+    semantics of the reference's ``while_loop`` under ``vmap``: every
+    active lane runs the same iterations a round; a lane stops once
+    settled (rms below the gate) or futile (a round made less than 8%
+    relative progress) and keeps its carry frozen from then on; the loop
+    ends when no lane is active. The lane mask is the one host read a
+    round. Returns the best state, its rms and the rounds each lane ran,
+    (P, n3), (P,) and (P,)."""
+    p = zz_i.shape[0]
+    zz, lam = zz_i, _lane_vals(1e-3, p, zz_i)
+    best_zz = zz_i
+    best_rms = rms_prev = _lane_vals(torch.inf, p, zz_i)
+    done = torch.zeros(p, dtype=torch.bool, device=zz_i.device)
+    rounds = torch.zeros(p, dtype=torch.int32, device=zz_i.device)
+    for _ in range(outer_rounds):
+        act = ~done
+        rounds = rounds + act.to(torch.int32)
+        zz_r = system.reproject_n(zz)
+        zz_r, lam_r = system.run_lm(zz_r, maximum(lam, 1e-4), newton_iters)
+        rms_r = _rms(system.residual(zz_r))
+        ok_r = act & (rms_r < best_rms) & torch.isfinite(zz_r).all(-1)
+        best_zz = torch.where(ok_r[:, None], zz_r, best_zz)
+        best_rms = torch.where(ok_r, rms_r, best_rms)
+        done_r = (rms_r < _RMS_OK) | (rms_r > _FUTILITY * rms_prev)
+        zz = torch.where(act[:, None], zz_r, zz)
+        lam = torch.where(act, lam_r, lam)
+        rms_prev = torch.where(act, rms_r, rms_prev)
+        done = done | (act & done_r)
+        if not bool((~done).any()):
+            break
+    return best_zz, best_rms, rounds
+
+
+def _solve_lanes(op, alpha_deg, reynolds, n_crit, x_forced_transition,
+                 n_stations, n_wake, warm_iters, newton_iters, outer_rounds,
+                 init_state=None, x_trip_lower=None):
+    """The Newton solve of P lanes side by side: (ViscousResult, fallback
+    scalars, final state), every field with a leading lane axis."""
     system, sc, warm_state, zz_i = _prepare(
         op, alpha_deg, reynolds, n_crit, x_forced_transition, n_stations,
         n_wake, warm_iters, init_state, x_trip_lower)
-    pan, grid = op.pan, system.grid
-    dtype = pan.xm.dtype
+    zz, rms, _rounds = _lm_rounds(system, zz_i, newton_iters, outer_rounds)
+    return _lane_answer(system, sc, warm_state, zz, rms)
+
+
+def _lane_answer(system, sc, warm_state, zz, rms):
+    """The lanes' answer at the state ``zz`` (P, n3), whose residual rms is
+    ``rms`` (P,): (ViscousResult, fallback scalars, final state)."""
+    pan, grid = system.op.pan, system.grid
+    dtype = grid.xi_u.dtype
     m_s, n_w, nu = system.m_s, system.n_w, system.nu
     n_crit_t = system.n_crit
     x_trip_u_t, x_trip_l_t = system.x_trip_u, system.x_trip_l
-
-    # ── LM rounds ───────────────────────────────────────────────────────
-    # Up to ``outer_rounds`` restart rounds of ``newton_iters`` LM
-    # iterations, the damping floor re-applied between rounds; the loop
-    # stops once settled (rms below the gate) or futile (a round made less
-    # than 8% relative progress). ``done`` is the one host read a round.
-    zz, lam = zz_i, _scalar(1e-3, zz_i)
-    best_zz = zz_i
-    inf = _scalar(torch.inf, zz_i)
-    best_rms, rms_prev = inf, inf
-    for _ in range(outer_rounds):
-        zz = system.reproject_n(zz)
-        zz, lam = system.run_lm(zz, maximum(lam, 1e-4), newton_iters)
-        rms_r = _rms(system.residual(zz))
-        ok_r = (rms_r < best_rms) & torch.isfinite(zz).all()
-        best_zz = torch.where(ok_r, zz, best_zz)
-        best_rms = torch.where(ok_r, rms_r, best_rms)
-        done = (rms_r < _RMS_OK) | (rms_r > _FUTILITY * rms_prev)
-        rms_prev = rms_r
-        if bool(done):
-            break
-    zz, rms = best_zz, best_rms
+    p = zz.shape[0]
 
     # Transition fronts from the solved n field (0.5-crossing of the
     # blend weight, interpolated).
+    def at(a, j):
+        return a.gather(-1, j[..., None])[..., 0]
+
     def xtr_of(z_side, x, xt, x_trip_side):
-        w = _w_station(z_side[:, 3], xt, n_crit_t, x_trip_side)
+        w = _w_station(z_side[..., 3], xt, n_crit_t[:, None],
+                       x_trip_side[:, None])
         hit = w >= 0.5
-        i = hit.to(torch.int32).argmax()
-        i1 = i.clamp(1, x.shape[0] - 1)
-        w1, w0 = _at(w, i1), _at(w, i1 - 1)
+        i = hit.to(torch.int32).argmax(-1)
+        i1 = i.clamp(1, x.shape[-1] - 1)
+        w1, w0 = at(w, i1), at(w, i1 - 1)
         dw = w1 - w0
         frac = clip((0.5 - w0) / torch.where(torch.abs(dw) < 1e-12, 1.0, dw),
                     0.0, 1.0)
-        x0 = _at(x, i1 - 1)
-        xc = x0 + frac * (_at(x, i1) - x0)
-        xc = torch.where(i == 0, x[0], xc)
-        return torch.where(hit.any(), xc, 2.0)
+        x0 = at(x, i1 - 1)
+        xc = x0 + frac * (at(x, i1) - x0)
+        xc = torch.where(i == 0, x[..., 0], xc)
+        return torch.where(hit.any(-1), xc, 2.0)
 
     # ── extract the solution ────────────────────────────────────────────
     zu, zl, zw = _unpack(zz, m_s, n_w)
     xtr_u = xtr_of(zu, grid.x_u, grid.xt_u, x_trip_u_t)
     xtr_l = xtr_of(zl, grid.x_l, grid.xt_l, x_trip_l_t)
-    w_u = _w_station(zu[:, 3], grid.xt_u, n_crit_t, x_trip_u_t)
-    w_l = _w_station(zl[:, 3], grid.xt_l, n_crit_t, x_trip_l_t)
+    w_u = _w_station(zu[..., 3], grid.xt_u, n_crit_t[:, None],
+                     x_trip_u_t[:, None])
+    w_l = _w_station(zl[..., 3], grid.xt_l, n_crit_t[:, None],
+                     x_trip_l_t[:, None])
 
-    m_w = torch.exp(zw[:, 1])
+    m_w = torch.exp(zw[..., 1])
     ue_u, ue_l, ue_w, vt, sigma_b, sigma_w = _ue_from_m(
-        op, system.wop, grid, system.vt0, torch.exp(zu[:, 1]),
-        torch.exp(zl[:, 1]), m_w)
+        system.op, system.wop, grid, system.vt0, torch.exp(zu[..., 1]),
+        torch.exp(zl[..., 1]), m_w)
 
     cp = 1.0 - vt * vt
     cl_c, cm, _cdp_raw = _forces_from_cp(pan, cp, sc["alpha"])
 
     # Squire-Young extrapolation from the wake end.
-    th_w_end = torch.exp(zw[-1, 0])
-    d_w_end = m_w[-1] / ue_w[-1]
+    th_w_end = torch.exp(zw[..., -1, 0])
+    d_w_end = m_w[..., -1] / ue_w[..., -1]
     h_end = clip(d_w_end / maximum(th_w_end, 1e-10), 1.0, 2.5)
-    ue_end = clip(ue_w[-1], 0.2, 1.5)
+    ue_end = clip(ue_w[..., -1], 0.2, 1.5)
     cd = 2.0 * th_w_end * ue_end ** (0.5 * (h_end + 5.0))
 
     def side_out(z, ue, xi, x, y, w, xtr):
-        theta = torch.exp(z[:, 0])
-        dstar = torch.exp(z[:, 1]) / ue
+        theta = torch.exp(z[..., 0])
+        dstar = torch.exp(z[..., 1]) / ue
         hk = clip(dstar / maximum(theta, 1e-10), 1.005, 12.0)
-        ret = maximum(ue * theta / nu, 1.0)
+        ret = maximum(ue * theta / nu[:, None], 1.0)
         cf = (1.0 - w) * cl.lam_cf(hk, ret) + w * cl.turb_cf(hk, ret)
         turb = w > 0.5
         # ``sep`` (the reported fraction): physical detachment onset;
@@ -944,11 +1069,11 @@ def _solve_viscous_newton_impl(op, alpha_deg, reynolds, n_crit,
         sep = hk > torch.where(turb, 2.9, cl.HK_LAM_MAX)
         sep_gate = hk > torch.where(turb, cl.HK_TURB_MAX, cl.HK_LAM_MAX)
         rear = x > 0.5
-        sep_rear = (torch.sum((turb & (hk > 2.9) & rear).to(x.dtype))
-                    / maximum(torch.sum(rear.to(x.dtype)), 1.0))
+        sep_rear = (torch.sum((turb & (hk > 2.9) & rear).to(x.dtype), -1)
+                    / maximum(torch.sum(rear.to(x.dtype), -1), 1.0))
         side = SideBL(x=x, y=y, s=xi, ue=ue, theta=theta, dstar=dstar,
                       hk=hk, cf=cf, turb=turb,
-                      x_transition=clip(minimum(xtr, x[-1]), 0.0, 1.0))
+                      x_transition=clip(minimum(xtr, x[..., -1]), 0.0, 1.0))
         return side, cf, sep, sep_gate, sep_rear
 
     upper, cf_u, sep_u, sepg_u, sep_rear_u = side_out(
@@ -960,17 +1085,17 @@ def _solve_viscous_newton_impl(op, alpha_deg, reynolds, n_crit,
            + _friction_drag(cf_l, ue_l, grid.x_l))
     cdp = cd - cdf
 
-    sep_fraction = 0.5 * (torch.mean(sep_u.to(dtype))
-                          + torch.mean(sep_l.to(dtype)))
-    sep_gate_fraction = 0.5 * (torch.mean(sepg_u.to(dtype))
-                               + torch.mean(sepg_l.to(dtype)))
+    sep_fraction = 0.5 * (torch.mean(sep_u.to(dtype), -1)
+                          + torch.mean(sep_l.to(dtype), -1))
+    sep_gate_fraction = 0.5 * (torch.mean(sepg_u.to(dtype), -1)
+                               + torch.mean(sepg_l.to(dtype), -1))
     sep_rear_fraction = maximum(sep_rear_u, sep_rear_l)
 
     # Physical sanity joins the rms test in the verdict: a CL beyond the
     # inviscid one, a lift deficit beyond the separation-widened band, or
     # a CD outside the envelope for this Re marks a wrong basin.
     reynolds_t = sc["re"]
-    cl_inv = sc["sol0"].cl
+    cl_inv = sc["cl_inv"]
     deficit_band = ((0.35 + 0.8 * clip(sep_rear_fraction, 0.0, 0.4))
                     * torch.abs(cl_inv))
     cl_sane = ((torch.abs(cl_c - cl_inv) < maximum(deficit_band, 0.15))
@@ -979,21 +1104,22 @@ def _solve_viscous_newton_impl(op, alpha_deg, reynolds, n_crit,
     cd_hi = (_CD_HI_COEF * reynolds_t ** -0.2
              + _CD_HI_SEP * clip(sep_rear_fraction, 0.0, 0.4))
     cd_sane = (cd > cd_lo) & (cd < cd_hi)
-    finite = (torch.isfinite(zz).all() & torch.isfinite(cl_c)
+    finite = (torch.isfinite(zz).all(-1) & torch.isfinite(cl_c)
               & torch.isfinite(cd))
 
     # Oracle check: a march over the converged edge velocities must
     # reproduce the system's TE momentum thickness. The reference marches
-    # four lanes; under the default gates only the first two (each side
-    # with free amplification, forced at min(system front, trip)) feed the
-    # verdict, so those two are marched.
+    # four lanes a point; under the default gates only the first two (each
+    # side with free amplification, forced at min(system front, trip))
+    # feed the verdict, so those are marched: 2P lanes.
     bl_chk = kernel.march_side(
-        torch.stack([grid.xi_u, grid.xi_l]), torch.stack([ue_u, ue_l]),
-        torch.stack([grid.x_u, grid.x_l]), nu, n_crit_t,
-        torch.stack([minimum(xtr_u, sc["x_trip"]),
-                     minimum(xtr_l, sc["x_trip_lo"])]))
-    ratio = (bl_chk.theta[0, -1] + bl_chk.theta[1, -1]) / maximum(
-        torch.exp(zu[-1, 0]) + torch.exp(zl[-1, 0]), 1e-10)
+        torch.cat([grid.xi_u, grid.xi_l]), torch.cat([ue_u, ue_l]),
+        torch.cat([grid.x_u, grid.x_l]), torch.cat([nu, nu]),
+        torch.cat([n_crit_t, n_crit_t]),
+        torch.cat([minimum(xtr_u, sc["x_trip"]),
+                   minimum(xtr_l, sc["x_trip_lo"])]))
+    ratio = (bl_chk.theta[:p, -1] + bl_chk.theta[p:, -1]) / maximum(
+        torch.exp(zu[..., -1, 0]) + torch.exp(zl[..., -1, 0]), 1e-10)
     march_consistent = (ratio < 1.6) & ((ratio > 0.6)
                                         | (sep_rear_fraction > 0.02))
 
@@ -1004,9 +1130,21 @@ def _solve_viscous_newton_impl(op, alpha_deg, reynolds, n_crit,
         cl=cl_c, cd=cd, cdp=cdp, cm=cm, cp=cp, upper=upper, lower=lower,
         converged=converged, sep_fraction=sep_fraction,
         sigma=sigma_b, sigma_wake=sigma_w)
-    fb = _fallback_scalars(op, system.wop, grid, system.vt0, warm_state,
-                           sc["alpha"], nu, dtype, cl_inv=cl_inv)
+    fb = _fallback_scalars(system.op, system.wop, grid, system.vt0,
+                           warm_state, sc["alpha"], nu, dtype, cl_inv=cl_inv)
     return res, fb, (zz, xtr_u, xtr_l)
+
+
+def _lane0(tree):
+    """Lane 0 of every tensor of a (nested) tuple: the one-lane case."""
+    if isinstance(tree, torch.Tensor):
+        return tree[0]
+    vals = [_lane0(t) for t in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def _one_state(init_zz, init_xtr_u, init_xtr_l):
+    return (init_zz.reshape(1, -1), init_xtr_u, init_xtr_l)
 
 
 def solve_viscous_newton(
@@ -1027,12 +1165,13 @@ def solve_viscous_newton(
     ``outer_rounds`` restart rounds of ``newton_iters`` LM iterations,
     exiting early once settled. Same result contract as
     ``coupled.solve_viscous``. ``x_forced_transition_lower``: a separate
-    lower-surface trip (``None``: both use ``x_forced_transition``)."""
-    res, _fb, _state = _solve_viscous_newton_impl(
+    lower-surface trip (``None``: both use ``x_forced_transition``). The
+    one-lane case of the lane solve."""
+    res, _fb, _state = _solve_lanes(
         op, alpha_deg, reynolds, n_crit, x_forced_transition, n_stations,
         n_wake, warm_iters, newton_iters, outer_rounds,
         x_trip_lower=x_forced_transition_lower)
-    return res
+    return _lane0(res)
 
 
 def _merge_point(res, fb):
@@ -1044,6 +1183,34 @@ def _merge_point(res, fb):
                    for a, b in zip(newton_out, fb))
     converged = use_newton | fb[4]
     return merged[:4] + (converged,) + merged[5:]
+
+
+def _points_out(res, fb, state):
+    return _merge_point(res, fb), (res.converged, state)
+
+
+def solve_polar_points(
+    op,
+    alphas,
+    reynolds,
+    n_crit: float = 9.0,
+    x_forced_transition: float = 1.0,
+    n_stations: int = 96,
+    n_wake: int = 20,
+    warm_iters: int = 8,
+    newton_iters: int = 10,
+    outer_rounds: int = 3,
+):
+    """P polar points solved side by side (the reference's ``vmap`` of
+    ``solve_polar_point``): one lane a point, every lane through the same
+    LM iterations, a settled lane frozen. ``op`` is one operator shared by
+    every lane (a polar) or a sequence of P (a batch of geometries);
+    ``alphas`` and ``reynolds`` are one a lane or shared. Returns
+    ((cl, cd, cdp, cm, converged, xtr_u, xtr_l, sep_fraction),
+    (newton_converged, (zz, xtr_u, xtr_l))), each (P,) or (P, n3)."""
+    return _points_out(*_solve_lanes(
+        op, alphas, reynolds, n_crit, x_forced_transition, n_stations,
+        n_wake, warm_iters, newton_iters, outer_rounds))
 
 
 def solve_polar_point(
@@ -1060,11 +1227,11 @@ def solve_polar_point(
 ):
     """One polar point: Newton scalars where converged, else the warm-start
     direct-trajectory fallback. Returns ((cl, cd, cdp, cm, converged,
-    xtr_u, xtr_l, sep_fraction), (newton_converged, final_state))."""
-    res, fb, state = _solve_viscous_newton_impl(
+    xtr_u, xtr_l, sep_fraction), (newton_converged, final_state)): the
+    one-lane case of ``solve_polar_points``."""
+    return _lane0(solve_polar_points(
         op, alpha_deg, reynolds, n_crit, x_forced_transition, n_stations,
-        n_wake, warm_iters, newton_iters, outer_rounds)
-    return _merge_point(res, fb), (res.converged, state)
+        n_wake, warm_iters, newton_iters, outer_rounds))
 
 
 def solve_viscous_newton_cont(
@@ -1085,11 +1252,11 @@ def solve_viscous_newton_cont(
     """Full-result continuation solve from a donor state (the single-point
     analysis path's rescue); ``state_from_numpy`` carries a reference
     donor across."""
-    res, _fb, _state = _solve_viscous_newton_impl(
+    res, _fb, _state = _solve_lanes(
         op, alpha_deg, reynolds, n_crit, x_forced_transition, n_stations,
         n_wake, warm_iters, newton_iters, outer_rounds,
-        init_state=(init_zz, init_xtr_u, init_xtr_l))
-    return res
+        init_state=_one_state(init_zz, init_xtr_u, init_xtr_l))
+    return _lane0(res)
 
 
 def solve_polar_point_cont(
@@ -1118,9 +1285,8 @@ def solve_polar_point_cont(
     one ported) does not read."""
     if outer_rounds is None:
         outer_rounds = _CONT_ROUNDS
-    res, fb, state = _solve_viscous_newton_impl(
+    return _lane0(_points_out(*_solve_lanes(
         op, alpha_deg, reynolds, n_crit, x_forced_transition, n_stations,
         n_wake, warm_iters, newton_iters, outer_rounds,
-        init_state=(init_zz, init_xtr_u, init_xtr_l),
-        x_trip_lower=x_forced_transition_lower)
-    return _merge_point(res, fb), (res.converged, state)
+        init_state=_one_state(init_zz, init_xtr_u, init_xtr_l),
+        x_trip_lower=x_forced_transition_lower)))

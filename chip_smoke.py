@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's wind-tunnel path, its XFOIL-replacement path and its
-single-point analysis service (``airfoil_tpu_torch``) on the card and
+Drives the port's wind-tunnel path, its XFOIL-replacement path, its
+single-point analysis service and its polar and batch analyses
+(``airfoil_tpu_torch``) on the card and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
@@ -106,8 +107,9 @@ of the reference ensemble's members with the same ``converged``:
     points, ``solve_polar_point`` at NACA 2412 alpha 8 and both
     continuation solves from the reference's donor state to alpha 10;
     exactly 10 side + 1 wake march launches a default solve (3 + 1 a
-    continuation); one LM iteration under
-    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronisation;
+    continuation); one LM iteration, of one lane and of eight lanes side
+    by side, under ``torch.cuda.set_sync_debug_mode("error")``: no host
+    synchronisation;
 15. analyze — ``analyze_airfoil`` (NACA 2412, 80 points a side) at alpha 4:
     viscous, the coefficients against the golden ensemble, the full
     boundary-layer schema; at alpha 19: inviscid, strategy 3, the warning,
@@ -117,7 +119,28 @@ of the reference ensemble's members with the same ``converged``:
     with the golden's file at Re 1e6, alpha 5: the reply's schema and
     coordinates as the reference's, the coefficients within the bars of
     its ensemble, one run log, the analysis counter up by one;
-17. newton speed — median wall of 10 default solves, the LM iterations and
+17. polar — ``solve_polar`` (NACA 2412, 80 points a side, alpha -2..6
+    step 2, Re 1e6: 5 points in a bucket of 8 lanes), held to
+    ``tests/golden/torch_polar.json`` (``tests/make_torch_polar_goldens.py``):
+    each point's ``mode`` one of the reference ensemble's, CL, CD, Cm and
+    x_transition within the bars of the members with its mode and
+    ``converged``; the sweep's march launches and lanes (10 of 16 side
+    lanes and 1 of 8 wakes a per-point or rescue pass, 3 of 2 and 1 of 1 a
+    walk solve) and the walk's continuation and trip solves counted; the
+    per-point pass's marches held to the plain march as in phase 13 (a
+    free lane whose ensemble's x_transition takes several values may land
+    between them: 160 free lanes meet that knife edge where the Newton
+    phases' 40 did not); the
+    per-point pass's wall, device time and busy share; one LM iteration
+    at 1, 8 and 64 lanes (wall, device time); both march kernels at 64
+    and 128 lanes with their bounds;
+18. batch — ``solve_batch`` of NACA 2412 (80 a side) and 0012 (70) at
+    alpha 2: each lane held to its golden ensemble, 10 + 1 launches;
+19. served — ``POST /polar/`` with the same sweep equal to the library's
+    polar to the JSON's rounding, ``POST /batch/`` with the two files (N
+    parts named ``files``) equal to the library's batch, ``GET /stats``
+    up by the three analyses served;
+20. newton speed — median wall of 10 default solves, the LM iterations and
     host synchronisations of a solve, its device time and busy share; one
     LM iteration's dispatched operations, device kernels and time, the
     four batched Cholesky solves, ``_reproject_n``; the march kernels at
@@ -135,7 +158,9 @@ of the call's kernels.
 
 The line before last is the card as nvidia-smi names it, the line before
 that the kernel table (JSON; the march entries add ``newton_*`` keys: the
-Newton path's launches and the kernels at its shapes), and the last line
+Newton path's launches and the kernels at its shapes, and ``polar_*``
+keys: the polar's launches, lanes a launch, and the kernels at 64 and 128
+lanes with their bounds), and the last line
 the result (JSON). JAX is never imported, nor anything of ``airfoil_tpu``.
 """
 
@@ -599,14 +624,17 @@ def phase_large(dev, kernel, WindTunnel, cfg_cls):
     return tiled
 
 
-def _post(url: str, fields: dict, files: dict | None = None):
-    """multipart/form-data POST; returns (status, json)."""
+def _post(url: str, fields: dict, files=None):
+    """multipart/form-data POST; ``files`` maps a field to (filename,
+    bytes), or is a list of (field, (filename, bytes)) parts (a field may
+    repeat); returns (status, json)."""
     boundary = uuid.uuid4().hex
     parts = []
     for k, v in fields.items():
         parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
                      f'name="{k}"\r\n\r\n{v}\r\n'.encode())
-    for k, (fname, data) in (files or {}).items():
+    items = files.items() if isinstance(files, dict) else (files or [])
+    for k, (fname, data) in items:
         parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
                      f'name="{k}"; filename="{fname}"\r\n'
                      f'Content-Type: application/octet-stream\r\n\r\n'
@@ -616,7 +644,7 @@ def _post(url: str, fields: dict, files: dict | None = None):
         url, data=body, method="POST",
         headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
     try:
-        with urllib.request.urlopen(req, timeout=300) as r:
+        with urllib.request.urlopen(req, timeout=900) as r:
             return r.status, json.loads(r.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
@@ -1239,13 +1267,14 @@ def side_march_bound(mk, plain, args) -> tuple:
 
 def wake_march_bound(mk, plain, w) -> tuple:
     """As ``side_march_bound``, for one wake march call ``w`` (s, ue, nu,
-    theta0, dstar0, ctau0) of one lane."""
+    theta0, dstar0, ctau0): its four per-lane parameters read once."""
     mw = w[0].shape[-1]
     out = mk.march_wake(*w)
     cut = [w[0][..., :PROFILED_INTERVALS + 1],
            w[1][..., :PROFILED_INTERVALS + 1], *w[2:]]
     ops = count_ops(plain.march_wake, *cut) * (mw - 1) / PROFILED_INTERVALS
-    return bound(nbytes(*w[:2], *out) + 4 * 4, ops), ops
+    lanes = w[0].reshape(-1, mw).shape[0]
+    return bound(nbytes(*w[:2], *out) + 4 * 4 * lanes, ops), ops
 
 
 def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
@@ -1382,13 +1411,17 @@ NEWTON_SHAPE = {"n_stations": 96, "n_wake": 20, "warm_iters": 8,
 
 def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
                           n_strict_sides, n_strict_wakes, label,
-                          te_tail=TE_TAIL, stage="newton march"):
+                          te_tail=TE_TAIL, stage="newton march",
+                          xtr_between=False):
     """The march kernels against the plain march on recorded main-path
     calls: all side calls as the lanes of one batch, all wake calls as
     those of another, each lane with the plain march's rounding ensemble
     (ue scaled by 1 + k 2^-23). A lane is held (rtol MARCH_RTOL, flags
     identical) up to the first station where its ensemble spreads, and its
-    x_transition must be one of the ensemble's; the lanes of the first
+    x_transition must be one of the ensemble's (with ``xtr_between``, where
+    the ensemble's takes several values, anywhere between the least and
+    the greatest of them: a free lane at a laminar knife edge, whose
+    rounding moves transition by stations); the lanes of the first
     ``n_strict_sides`` side calls (tripped: no laminar knife edge) must
     have one x_transition over the ensemble and may spread only in their
     last ``te_tail`` stations, where ue falls steeply into the trailing
@@ -1418,14 +1451,19 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
     strict = sum(c[0].reshape(-1, m).shape[0]
                  for c in side_calls[:n_strict_sides])
     stop = []
+    between = 0
     for lane in range(n_l):
         rows = slice(lane * k, (lane + 1) * k)
         stop.append(ensemble_stop({f: getattr(want, f)[rows]
                                    for f in HELD_FIELDS}, HELD_FIELDS))
         xtrs = set(want.x_transition[rows].tolist())
         xk = float(got.x_transition[nominal[lane]])
-        require(xk in xtrs, f"{label} side lane {lane}: x_tr {xk} not in "
-                f"the plain ensemble's {sorted(xtrs)}")
+        if xtr_between and xk not in xtrs and len(xtrs) > 1 \
+                and min(xtrs) <= xk <= max(xtrs):
+            between += 1
+        else:
+            require(xk in xtrs, f"{label} side lane {lane}: x_tr {xk} not "
+                    f"in the plain ensemble's {sorted(xtrs)}")
         require(lane >= strict or (len(xtrs) == 1 and stop[-1] >= m - te_tail),
                 f"{label}: strict side lane {lane}: the plain ensemble "
                 f"spreads from station {stop[-1]} of {m}, x_tr {sorted(xtrs)}")
@@ -1468,7 +1506,9 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
         f"lanes spread-free on all stations {sum(t == m for t in stop)} of "
         f"{n_l} (else held up to {[t for t in stop if t < m]}), wakes "
         f"{sum(t == mw for t in wstop)} of {n_wl}; kernel = plain there "
-        f"(rtol {MARCH_RTOL}, flags and x_transition in the ensemble), max "
+        f"(rtol {MARCH_RTOL}, flags and x_transition in the ensemble; "
+        f"{between} knife-edge lanes' x_transition between the ensemble's "
+        f"values), max "
         f"abs {worst:.3e} (sides), {worst_w:.3e} (wakes); plain batch call "
         f"{t_plain:.2f} s")
     return {"bl_march": worst, "bl_march_wake": worst_w}, batch
@@ -1552,35 +1592,40 @@ def phase_newton(dev, goldens, ops, newton, mk):
     return {"bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches}
 
 
-def newton_system(dev, newton, op):
-    """The Newton system at the speed point after its warm start, the start
-    state and the start damping."""
+def newton_system(dev, newton, op, alphas=None):
+    """The Newton system at the speed point (or at ``alphas``, one lane
+    each) after its warm start, the start state (P, n3) and the start
+    damping (P,)."""
     code, alpha, re = NEWTON_POINT
+    if alphas is not None:
+        alpha = torch.tensor(alphas, dtype=torch.float32, device=dev)
     system, _sc, _ws, zz = newton._prepare(
         op, alpha, re, 9.0, 1.0, NEWTON_SHAPE["n_stations"],
         NEWTON_SHAPE["n_wake"], NEWTON_SHAPE["warm_iters"])
-    return system, zz, torch.full((), 1e-3, device=dev)
+    return system, zz, torch.full((zz.shape[0],), 1e-3, device=dev)
 
 
 def phase_lm_sync_free(dev, newton, op):
-    """One LM iteration at the speed point under
-    ``torch.cuda.set_sync_debug_mode("error")``: it must not synchronise
-    with the host (after one warm iteration, which fills the device
-    constant caches)."""
-    system, zz, lam = newton_system(dev, newton, op)
-    system.lm_step(zz, lam)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        zz2, lam2 = system.lm_step(zz, lam)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    require(bool(torch.isfinite(zz2).all()) and float(lam2) > 0.0,
-            "LM iteration result")
-    log(f"[newton] one LM iteration ({zz.shape[0]} unknowns) ran under "
-        f"set_sync_debug_mode('error'): no host synchronisation; damping "
-        f"{float(lam):g} -> {float(lam2):g}")
+    """One LM iteration at the speed point, and one of eight lanes (a
+    polar bucket's), under ``torch.cuda.set_sync_debug_mode("error")``:
+    neither may synchronise with the host (after one warm iteration, which
+    fills the device constant caches)."""
+    for alphas in (None, [-2.0, 0.0, 2.0, 4.0, 6.0, 6.0, 6.0, 6.0]):
+        system, zz, lam = newton_system(dev, newton, op, alphas)
+        system.lm_step(zz, lam)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            zz2, lam2 = system.lm_step(zz, lam)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(zz2).all()) and bool((lam2 > 0.0).all()),
+                "LM iteration result")
+        log(f"[newton] one LM iteration ({zz.shape[0]} lane(s) of "
+            f"{zz.shape[-1]} unknowns) ran under set_sync_debug_mode("
+            f"'error'): no host synchronisation; damping "
+            f"{lam.tolist()} -> {lam2.tolist()}")
 
 
 @contextlib.contextmanager
@@ -1731,6 +1776,400 @@ def phase_upload(goldens, make_server, run_log_dir, stats, analyze_mod):
     return wall
 
 
+POLAR_GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_polar.json")
+# The sweep's per-point and continuation solves: warm passes, LM
+# iterations a round; side marches a solve are warm passes + 2.
+POINTS_SHAPE = {"warm_iters": 8, "newton_iters": 10}
+CONT_SHAPE = {"warm_iters": 1, "newton_iters": 14}
+
+
+def precise_dat(name: str, coords) -> str:
+    """A .dat file whose coordinates parse back to the same float32
+    values (9 significant digits)."""
+    return name + "\n" + "\n".join(f" {x:.9g} {y:.9g}"
+                                   for x, y in np.asarray(coords, np.float32))
+
+
+def nearest_member(rec: dict, members, bars=None) -> tuple[float, int]:
+    """(distance, index) of the member of ``members`` ((index, member)
+    pairs) nearest ``rec`` jointly: a member's distance is the largest,
+    over the barred fields, of |rec - member| in units of the field's bar
+    around the member (at most 1: every field within its bar)."""
+    bars = VISCOUS_BARS if bars is None else bars
+    return min((max(abs(rec[f] - m[f]) / (a + r * abs(m[f]))
+                    for f, (a, r) in bars.items()), i) for i, m in members)
+
+
+def held_to_polar(rec: dict, golden: dict) -> tuple[list, str]:
+    """A polar point or batch lane ``rec`` held jointly to one member of
+    the reference's rounding ensemble. Its candidates are the members that
+    share its verdict (``mode`` where it has one, and ``converged``); it
+    is held when every barred field lies within its bar of one candidate.
+    Where none holds it, rounding has moved the port's transition by a
+    station or so off every member's, which moves CD most: it then passes
+    only if every barred field but CD lies within its bar of one
+    candidate (the reference's basin: its transitions, lift and moment),
+    and the note names those candidates beside the nearest member. The
+    lane's arithmetic, CD included, is held apart from its basin by the
+    solve from the reference's own states (``held_from_states``). Returns
+    (failures, note)."""
+    flags = [f for f in ("mode", "converged") if f in rec]
+    cands = [(i, m) for i, m in enumerate(golden["members"])
+             if all(m[f] == rec[f] for f in flags)]
+    if not cands:
+        return [f"{ {f: rec[f] for f in flags} } not among the verdicts of "
+                f"the ensemble's members"], ""
+    d, i = nearest_member(rec, cands)
+    note = f"nearest member {i} at {d:.3f} bars"
+    if d <= 1.0:
+        return [], note
+    but_cd = {f: b for f, b in VISCOUS_BARS.items() if f != "cd"}
+    basin = [j for j, m in cands
+             if nearest_member(rec, [(j, m)], but_cd)[0] <= 1.0]
+    if not basin:
+        return [f"off every member jointly ({note}) and in no member's "
+                f"basin"], note
+    return [], (f"off every member jointly ({note}): a knife edge, all "
+                f"but CD within the bars of members {basin}")
+
+
+# The bars of a lane's answer at the reference's own final state: the
+# same arithmetic on the same state, up to the card's rounding.
+STATE_BARS = {"cl": (1e-4, 0.0), "cd": (0.0, 1e-4), "cm": (1e-4, 0.0),
+              "xtr_upper": (1e-4, 0.0), "xtr_lower": (1e-4, 0.0)}
+
+
+def held_from_states(newton, op, recs, reynolds, dev, label: str) -> float:
+    """The lane-batched system at the reference's own final states
+    (``points_pass``: its per-point pass of a polar, or its batch) in place
+    of the LM rounds' result: set up as the solve sets it up (warm start,
+    trip ceilings), each lane's residual, answer and verdicts are taken at
+    the reference's state, so no basin is chosen. Every lane must give the
+    reference's verdicts; every lane the reference solved, its answer
+    within ``STATE_BARS``. (A lane whose Newton solve failed answers with
+    the warm-start fallback, which the state does not reach: its verdicts
+    hold it.) ``op`` is one operator or one a lane. Returns the largest
+    distance, in units of ``STATE_BARS``."""
+    zz, xu, xl = newton.state_from_numpy(
+        [r["state"]["zz"] for r in recs], [r["state"]["xtr_u"] for r in recs],
+        [r["state"]["xtr_l"] for r in recs], device=dev)
+    alphas = torch.tensor([r["alpha"] for r in recs], device=dev)
+    t0 = time.perf_counter()
+    system, sc, warm_state, zz = newton._prepare(
+        op, alphas, reynolds, 9.0, 1.0, 96, 20, POINTS_SHAPE["warm_iters"],
+        init_state=(zz, xu, xl))
+    rms = newton._rms(system.residual(zz))
+    merged, (nok, _state) = newton._points_out(*newton._lane_answer(
+        system, sc, warm_state, zz, rms))
+    secs = time.perf_counter() - t0
+    worst, fails = 0.0, []
+    for i, want in enumerate(recs):
+        rec = merged_record(([v[i] for v in merged], (nok[i], None)))
+        flags = ("converged", "newton_converged")
+        if any(rec[f] != want[f] for f in flags):
+            fails.append(f"lane {i}: verdicts {[rec[f] for f in flags]}, "
+                         f"the reference's {[want[f] for f in flags]}")
+        elif want["newton_converged"]:
+            d, _ = nearest_member(rec, [(0, want)], STATE_BARS)
+            worst = max(worst, d)
+            if d > 1.0:
+                fails.append(f"lane {i} (alpha {want['alpha']:g}): "
+                             f"{json.dumps(rec)} is {d:.3f} bars off the "
+                             f"reference's {json.dumps({f: want[f] for f in STATE_BARS})}")
+    log(f"[polar states] {label}: every lane's answer at the reference's "
+        f"final state ({secs:.3f} s, residual rms "
+        f"{[round(float(r), 6) for r in rms]}): the "
+        f"{sum(r['newton_converged'] for r in recs)} lanes the reference "
+        f"solved at most {worst:.4f} of their bars (CL, Cm, x_tr 1e-4; CD "
+        f"1e-4 relative) {'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"{label}: {fails}")
+    return worst
+
+
+def polar_record(res, i: int) -> dict:
+    return {"alpha": float(res.alpha[i]), "cl": float(res.cl[i]),
+            "cd": float(res.cd[i]), "cdp": float(res.cdp[i]),
+            "cm": float(res.cm[i]), "mode": int(res.mode[i]),
+            "converged": bool(res.converged[i]),
+            "xtr_upper": float(res.xtr_upper[i]),
+            "xtr_lower": float(res.xtr_lower[i]),
+            "sep_fraction": float(res.sep_fraction[i])}
+
+
+@contextlib.contextmanager
+def lm_rounds_recorded(newton):
+    """Records (lanes, rounds each lane ran) of every LM round loop."""
+    runs = []
+    orig = newton._lm_rounds
+
+    def counted(system, *args):
+        out = orig(system, *args)
+        runs.append((system.lanes[0], out[2].tolist()))
+        return out
+
+    newton._lm_rounds = counted
+    try:
+        yield runs
+    finally:
+        newton._lm_rounds = orig
+
+
+def _lane_counts(calls) -> dict:
+    out = {}
+    for c in calls:
+        n = c[0].reshape(-1, c[0].shape[-1]).shape[0]
+        out[n] = out.get(n, 0) + 1
+    return out
+
+
+def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
+    """The main path of this slice: ``solve_polar`` of the golden polar on
+    the card, every point held to the reference's ensemble; the sweep's
+    marches (launches, lanes) and walk solves counted, the per-point pass's
+    marches held to the plain march, its profile, and the march kernels
+    at the polar path's 64 and 128 lanes. Returns (the result, {kernel:
+    its launches}, {kernel: its lanes a launch}, timings)."""
+    g = pgold["polar"]
+    coords = np.asarray(naca4_coords(*g["naca"]), np.float32)
+    mk.march_launches = 0
+    mk.wake_launches = 0
+    sweep.walk_solves.update(cont=0, trip=0)
+    with lm_rounds_recorded(newton) as runs, recording(mk) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep.solve_polar(coords, g["alphas"], g["re"], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"bl_march": mk.march_launches,
+                "bl_march_wake": mk.wake_launches}
+    walk = dict(sweep.walk_solves)
+    n_walk = walk["cont"] + walk["trip"]
+    p = sweep._bucket_size(len(g["alphas"]))
+    sides = _lane_counts(calls["march_side"])
+    wakes = _lane_counts(calls["march_wake"])
+    per_pass = POINTS_SHAPE["warm_iters"] + 2
+    per_cont = CONT_SHAPE["warm_iters"] + 2
+    passes = wakes.get(p, 0)       # the per-point pass and the rescue
+    require(passes in (1, 2) and sides.get(2 * p, 0) == per_pass * passes
+            and sides.get(2, 0) == per_cont * n_walk
+            and wakes.get(1, 0) == n_walk
+            and sum(sides.values()) == launches["bl_march"]
+            and sum(wakes.values()) == launches["bl_march_wake"],
+            f"polar marches: side lanes {sides}, wake lanes {wakes}, "
+            f"launches {launches}, walk solves {walk}")
+    fails = []
+    for i, pg in enumerate(g["points"]):
+        rec = polar_record(res, i)
+        f, note = held_to_polar(rec, pg)
+        fails += [f"alpha {pg['alpha']:g}: {x}" for x in f]
+        log(f"[polar] alpha {pg['alpha']:g}: {json.dumps(rec)}; golden mode "
+            f"{pg['mode']} cl {pg['cl']:.4f} cd {pg['cd']:.5f}; ensemble "
+            f"{json.dumps(pg['ensemble'])}; {note} "
+            f"{'ok' if not f else 'FAIL'}")
+    points_lanes, points_rounds = runs[0]
+    lm_iters = max(points_rounds) * POINTS_SHAPE["newton_iters"]
+    log(f"[polar] solve_polar NACA {''.join(map(str, g['naca'][:3]))} "
+        f"({g['naca'][3]} points a side), alpha {g['alphas']} at Re "
+        f"{g['re']:g}: {len(g['alphas'])} points in a bucket of {p} lanes, "
+        f"{wall:.3f} s wall ({card}); per-point pass: {points_lanes} lanes, "
+        f"rounds a lane {points_rounds}, {lm_iters} LM iterations; walk: "
+        f"{walk['cont']} continuation and {walk['trip']} trip solves "
+        f"(rounds {[r for _, r in runs[1:1 + n_walk]]}); rescue pass "
+        f"{'run' if passes == 2 else 'not needed'}; march launches "
+        f"{launches} (side lanes a launch: {sides}; wake: {wakes}); modes "
+        f"{res.mode.tolist()} {'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"polar: {fails}")
+    worst, _batch = hold_recorded_marches(
+        dev, mk, plain, calls["march_side"][:per_pass],
+        calls["march_wake"][:1], 0, 0,
+        f"the polar's per-point pass ({p} lanes)", stage="polar march",
+        xtr_between=True)
+
+    # The per-point pass alone: wall, and device time from the profiler.
+    op, _xp, _yp = sweep._op_kernel(sweep._pad_coords(
+        torch.as_tensor(coords, device=dev)), N_PANELS)
+    a_np = np.asarray(g["alphas"], np.float32)
+    a_in = torch.as_tensor(np.concatenate(
+        [a_np, np.repeat(a_np[-1:], p - len(a_np))]), device=dev)
+    re_in = torch.full((p,), g["re"], dtype=torch.float32, device=dev)
+    t_pass = _median_s(lambda: sweep._points_kernel(op, a_in, re_in), 2)
+    with traced() as prof:
+        sweep._points_kernel(op, a_in, re_in)
+    ev = kernel_events(prof, "march_side_kernel", "march_wake_kernel")
+    busy = ev["all"][1] / 1e3 / (t_pass * 1e3)
+    log(f"[polar] the per-point pass alone ({p} lanes): {t_pass:.3f} s wall "
+        f"(median of 2), profiled: {ev['all'][0]} device kernels, "
+        f"{ev['all'][1] / 1e3:.3f} ms of device time (march_side_kernel "
+        f"{ev['march_side_kernel'][0]} x, "
+        f"{ev['march_side_kernel'][1] / 1e3:.3f} ms; march_wake_kernel "
+        f"{ev['march_wake_kernel'][0]} x, "
+        f"{ev['march_wake_kernel'][1] / 1e3:.3f} ms): device busy "
+        f"{busy:.1%} of the wall ({card})")
+    held_from_states(newton, op, g["points_pass"], g["re"], dev,
+                     f"the polar's per-point pass ({p} lanes)")
+
+    # One LM iteration as the lane count grows: its host issue stays one
+    # solve's, its device time grows with the lanes.
+    for lanes in (1, p, 64):
+        alphas = np.linspace(-2.0, 6.0, lanes).tolist()
+        system, zz, lam = newton_system(dev, newton, op, alphas)
+        system.lm_step(zz, lam)
+        lm_wall = _median_s(lambda: system.lm_step(zz, lam), 3)
+        with traced() as prof:
+            system.lm_step(zz, lam)
+        ev_lm = kernel_events(prof)["all"]
+        log(f"[polar] one LM iteration of {lanes} lane(s): {lm_wall * 1e3:.3f}"
+            f" ms wall (median of 3, synchronised), {ev_lm[0]} device "
+            f"kernels, {ev_lm[1] / 1e3:.3f} ms of device time "
+            f"({ev_lm[1] / 1e3 / (lm_wall * 1e3):.1%} busy) ({card})")
+        del system, zz, lam
+
+    # The march kernels at the polar path's lane counts: 2P side lanes of
+    # the 31-point (bucket 32) and 43-point (bucket 64) polars, P wakes.
+    side0, wake0 = calls["march_side"][0], calls["march_wake"][0]
+    at_lanes = {}
+    for lanes in (64, 128):
+        s_args = _stack_calls([side0] * (lanes // (2 * p)), 3)
+        w_args = _stack_calls([wake0] * (lanes // p), 2)
+        at_lanes[lanes] = {
+            "bl_march": (cuda_ms(lambda: mk.march_side(*s_args), 20),
+                         side_march_bound(mk, plain, s_args)[0]),
+            "bl_march_wake": (cuda_ms(lambda: mk.march_wake(*w_args), 20),
+                              wake_march_bound(mk, plain, w_args)[0])}
+        log(f"[polar] march kernels at {lanes} lanes: side ({lanes} x "
+            f"{side0[0].shape[-1]} stations) "
+            f"{at_lanes[lanes]['bl_march'][0]:.4f} ms (CUDA events, mean of "
+            f"20), bound {at_lanes[lanes]['bl_march'][1][0] * 1e3:.3f} us; "
+            f"wake ({lanes} x {wake0[0].shape[-1]} stations) "
+            f"{at_lanes[lanes]['bl_march_wake'][0]:.4f} ms, bound "
+            f"{at_lanes[lanes]['bl_march_wake'][1][0] * 1e3:.3f} us ({card})")
+    lanes_of = {"bl_march": sorted(sides), "bl_march_wake": sorted(wakes)}
+    return res, launches, lanes_of, worst, at_lanes
+
+
+def phase_batch(dev, pgold, polar, newton, mk):
+    """``solve_batch`` of the golden pair on the card (one lane a file),
+    each lane held to the reference's ensemble, then its lanes solved from
+    the reference's own states; returns the result."""
+    g = pgold["batch"]
+    mk.march_launches = 0
+    mk.wake_launches = 0
+    coords = [np.asarray(naca4_coords(*spec), np.float32)
+              for spec in g["files"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = polar.solve_batch(coords, g["re"], g["alpha"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = ("cl", "cd", "cdp", "cm", "converged", "xtr_upper", "xtr_lower",
+             "sep_fraction")
+    fails = []
+    for i, lg in enumerate(g["lanes"]):
+        rec = {f: (bool(getattr(res, f)[i]) if f == "converged"
+                   else float(getattr(res, f)[i])) for f in names}
+        f, note = held_to_polar(rec, lg)
+        fails += [f"lane {i}: {x}" for x in f]
+        log(f"[batch] lane {i} NACA {g['files'][i][:3]}: {json.dumps(rec)}; "
+            f"golden cl {lg['cl']:.4f} cd {lg['cd']:.5f} converged "
+            f"{lg['converged']}; ensemble {json.dumps(lg['ensemble'])}; "
+            f"{note} {'ok' if not f else 'FAIL'}")
+    per_pass = POINTS_SHAPE["warm_iters"] + 2
+    if (mk.march_launches, mk.wake_launches) != (per_pass, 1):
+        fails.append(f"{mk.march_launches} side and {mk.wake_launches} wake "
+                     f"launches, want {per_pass} and 1")
+    log(f"[batch] solve_batch of {len(coords)} files at alpha {g['alpha']:g},"
+        f" Re {g['re']:g}: {wall:.3f} s wall, {mk.march_launches} side "
+        f"launches of {2 * len(coords)} lanes, {mk.wake_launches} wake "
+        f"launch of {len(coords)} "
+        f"{'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"batch: {fails}")
+    held_from_states(newton, polar.batch._batch_ops(coords, N_PANELS, dev),
+                     g["points_pass"], g["re"], dev,
+                     f"the batch ({len(coords)} lanes)")
+    return res
+
+
+def phase_served(pgold, make_server, parse_upload, stats, polar_res,
+                 batch_res):
+    """``POST /polar/`` (the golden sweep) and ``POST /batch/`` (the golden
+    pair) on the port's server on the card, each equal to the library's
+    answer to the JSON's rounding, then ``GET /stats``: the counter grows
+    by the analyses served. Returns the requests' wall seconds."""
+    g, gb = pgold["polar"], pgold["batch"]
+    dat = precise_dat("NACA", naca4_coords(*g["naca"])).encode()
+    parsed, fixes = parse_upload("polar.dat", dat)
+    require(np.array_equal(np.asarray(parsed, np.float32), np.asarray(
+        naca4_coords(*g["naca"]), np.float32)),
+        f"the served .dat does not parse back to the library's loop "
+        f"(parser fixes {fixes})")
+    files = [("files", (f"naca{i}.dat",
+                        precise_dat("NACA", naca4_coords(*spec)).encode()))
+             for i, spec in enumerate(gb["files"])]
+    httpd = make_server(host="127.0.0.1", port=0, rate_limit=False,
+                        device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    a = g["alphas"]
+    try:
+        count0 = stats.get_analysis_count() or 0
+        t0 = time.perf_counter()
+        status, body = _post(url + "/polar/", {
+            "reynolds": g["re"], "alpha_start": a[0], "alpha_end": a[-1],
+            "alpha_step": a[1] - a[0]}, {"file": ("polar.dat", dat)})
+        t_polar = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b_status, b_body = _post(url + "/batch/", {
+            "reynolds": gb["re"], "alpha": gb["alpha"]}, files)
+        t_batch = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            s_status, s_body = r.status, json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    fails = []
+    names = {0: "viscous", 1: "viscous_smoothed", 2: "inviscid"}
+    if status != 200 or len(body.get("polar", [])) != len(a):
+        fails.append(f"/polar/ {status} {str(body)[:200]}")
+    else:
+        for i, row in enumerate(body["polar"]):
+            want = {"alpha": float(polar_res.alpha[i]),
+                    "CL": round(float(polar_res.cl[i]), 4),
+                    "CD": round(float(polar_res.cd[i]), 6),
+                    "CDp": round(float(polar_res.cdp[i]), 6),
+                    "Cm": round(float(polar_res.cm[i]), 4),
+                    "mode": names[int(polar_res.mode[i])],
+                    "converged": bool(polar_res.converged[i]),
+                    "xtr_upper": round(float(polar_res.xtr_upper[i]), 4),
+                    "xtr_lower": round(float(polar_res.xtr_lower[i]), 4),
+                    "sep_fraction": round(float(polar_res.sep_fraction[i]),
+                                          4)}
+            if row != want:
+                fails.append(f"/polar/ row {i} {row} != library {want}")
+    rows = b_body.get("results", []) if b_status == 200 else []
+    if len(rows) != len(gb["files"]):
+        fails.append(f"/batch/ {b_status} {str(b_body)[:200]}")
+    for i, row in enumerate(rows):
+        for key, f, nd in (("CL", "cl", 4), ("CD", "cd", 6), ("CDp", "cdp", 6),
+                           ("Cm", "cm", 4), ("xtr_upper", "xtr_upper", 4),
+                           ("xtr_lower", "xtr_lower", 4)):
+            if row.get(key) != round(float(getattr(batch_res, f)[i]), nd):
+                fails.append(f"/batch/ row {i} {key} {row.get(key)}")
+        if row.get("converged") != bool(batch_res.converged[i]):
+            fails.append(f"/batch/ row {i} converged")
+    served = 1 + len(gb["files"])
+    if s_status != 200 or s_body.get("total_analyses") != count0 + served:
+        fails.append(f"/stats {s_status} {s_body}, want {count0 + served}")
+    log(f"[served] POST /polar/ ({len(a)} points) {status} in {t_polar:.3f} s"
+        f", equal to the library's polar to the JSON's rounding; POST "
+        f"/batch/ ({len(files)} files) {b_status} in {t_batch:.3f} s: "
+        f"{rows}; GET /stats {s_status} {s_body} (was {count0}) "
+        f"{'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"served: {fails}")
+    return {"polar": t_polar, "batch": t_batch}
+
+
 def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
                        wake_call):
     """The Newton solve's profile at the speed point: wall time, rounds and
@@ -1843,7 +2282,8 @@ def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
         f"{ev_lm[1] / 1e3:.3f} ms of device time "
         f"({ev_lm[1] / 1e3 / (lm_wall * 1e3):.1%} busy); of it the "
         f"residual, the coloured Jacobian, J^T J and J^T r "
-        f"{ne_wall * 1e3:.3f} ms wall; the four damped {zz.shape[0]}^2 Cholesky "
+        f"{ne_wall * 1e3:.3f} ms wall; the four damped "
+        f"{zz.shape[-1]}^2 Cholesky "
         f"solves (batched cholesky_ex, two triangular solves, clip) "
         f"{chol_ms:.4f} ms (CUDA events, mean of 20), {ev_chol[0]} device "
         f"kernels, {ev_chol[1] / 1e3:.4f} ms of device time; "
@@ -1984,11 +2424,20 @@ def run(run_log_dir: str) -> int:
     walls = phase_analyze(dev, ngold, polar, analyze_mod)
     walls["upload"] = phase_upload(ngold, make_server, run_log_dir, stats,
                                    analyze_mod)
+    # The polar and batch path: the sweep, the batch, the served routes.
+    from airfoil_tpu_torch.polar import sweep
+    pgold = load_goldens(POLAR_GOLDENS)
+    polar_res, polar_launches, polar_lanes, polar_abs, at_lanes = \
+        phase_polar(dev, card, pgold, sweep, newton, march_kernel, march)
+    batch_res = phase_batch(dev, pgold, polar, newton, march_kernel)
+    walls.update(phase_served(pgold, make_server, parse_upload, stats,
+                              polar_res, batch_res))
     newton_times, newton_bounds = phase_newton_speed(
         card, dev, newton, op, march_kernel, march, side_call, wake_call)
     log(f"[newton speed] wall: analyze_airfoil alpha 4 {walls[4.0]:.3f} s, "
         f"alpha 19 {walls[19.0]:.3f} s; POST /upload_airfoil/ alpha 5 "
-        f"{walls['upload']:.3f} s ({card})")
+        f"{walls['upload']:.3f} s; POST /polar/ {walls['polar']:.3f} s; "
+        f"POST /batch/ {walls['batch']:.3f} s ({card})")
     newton_keys = {name: {
         "newton_launches": newton_launches[name],
         "newton_max_abs_err": newton_abs[name],
@@ -1998,7 +2447,15 @@ def run(run_log_dir: str) -> int:
         "newton_bound_ms": newton_bounds[name][0],
         "newton_bound_by": newton_bounds[name][1]} for name in newton_abs}
     for name, err in newton_abs.items():
-        max_abs[name] = max(max_abs[name], err)
+        max_abs[name] = max(max_abs[name], err, polar_abs[name])
+    for name in newton_keys:
+        newton_keys[name].update({
+            "polar_launches": polar_launches[name],
+            "polar_lanes": polar_lanes[name],
+            "polar_max_abs_err": polar_abs[name],
+            **{f"polar_{key}_{lanes}_lanes": v for lanes in (64, 128)
+               for key, v in (("ms", at_lanes[lanes][name][0]),
+                              ("bound_ms", at_lanes[lanes][name][1][0]))}})
 
     refused = [m for m in sys.modules
                if m.partition(".")[0] in ("jax", "airfoil_tpu")]

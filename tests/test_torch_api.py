@@ -26,7 +26,7 @@ from airfoil_tpu.api.minihttp import make_server as make_jax_server
 from airfoil_tpu.polar.analyze import AnalysisResult as JaxAnalysisResult
 from airfoil_tpu.models import naca4
 from airfoil_tpu_torch.api import handlers as port_handlers
-from airfoil_tpu_torch.api.minihttp import NOT_PORTED, make_server
+from airfoil_tpu_torch.api.minihttp import make_server
 from airfoil_tpu_torch.polar import AnalysisResult
 from airfoil_tpu_torch.utils import stats as port_stats
 from airfoil_tpu_torch.device import ENV_VAR, resolve_device
@@ -87,16 +87,28 @@ class TestBasics:
     def test_unknown_route(self, base_url):
         assert requests.get(base_url + "/nope").status_code == 404
 
-    @pytest.mark.parametrize("path", NOT_PORTED)
-    def test_unported_routes_501(self, base_url, naca2412_dat, path):
+    @pytest.mark.parametrize("path", ("/polar/", "/batch/", "/stats"))
+    def test_polar_batch_stats_routes_reach_handlers(self, base_url,
+                                                     naca2412_dat, path):
+        """The polar, batch and stats routes reach their handlers:
+        ``/stats`` counts, and a request that fails validation gets the JAX
+        handler's 400 (a valid one would solve for minutes on a CPU)."""
         if path == "/stats":
             r = requests.get(base_url + path)
+            assert r.status_code == 200
+            assert set(r.json()) == {"total_analyses"}
+            return
+        r = requests.post(base_url + path,
+                          data={"reynolds": 1e6, "alpha": 45.0},
+                          files={"file": ("a.dat", naca2412_dat)})
+        assert r.status_code == 400
+        if path == "/polar/":
+            assert r.json()["detail"] == "Missing form field 'alpha_start'"
         else:
-            r = requests.post(base_url + path,
-                              data={"reynolds": 1e6, "alpha": 4.0},
-                              files={"file": ("a.dat", naca2412_dat)})
-        assert r.status_code == 501
-        assert "not yet ported" in r.json()["detail"]
+            with pytest.raises(jax_handlers.ApiError) as err:
+                jax_handlers.handle_batch([("a.dat", naca2412_dat)], 1e6,
+                                          45.0)
+            assert r.json()["detail"] == err.value.detail
 
 
 def _analysis(cls, mode="viscous"):

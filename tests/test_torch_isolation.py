@@ -102,7 +102,10 @@ def test_port_imports_nothing_of_the_reference():
     for mod in ("airfoil_tpu_torch.config", "airfoil_tpu_torch.geometry.parser",
                 "airfoil_tpu_torch.models.naca", "airfoil_tpu_torch.lbm.masks",
                 "airfoil_tpu_torch.api.minihttp",
-                "airfoil_tpu_torch.viscous.kernel"):
+                "airfoil_tpu_torch.viscous.kernel",
+                "airfoil_tpu_torch.polar.sweep",
+                "airfoil_tpu_torch.polar.batch",
+                "airfoil_tpu_torch.bench.parity"):
         assert mod in got["modules"]
     assert got["finite"] and got["step"] == 2
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
@@ -203,6 +206,19 @@ def test_mask_equals_reference(alpha, grid):
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got, want)
     assert 0 < got.sum() < nx * ny
+
+
+def test_xfoil_truth_is_a_copy():
+    """The parity harness's anchor table is a byte copy of the
+    reference's, and loads to the same anchors."""
+    from airfoil_tpu.bench import parity as ref_parity
+    from airfoil_tpu_torch.bench import parity
+
+    with open(parity._DATA, "rb") as a, open(ref_parity._DATA, "rb") as b:
+        assert a.read() == b.read()
+    assert parity.load_truth() == ref_parity.load_truth()
+    assert os.path.dirname(os.path.dirname(parity._DATA)) == \
+        os.path.join(ROOT, "airfoil_tpu_torch", "bench")
 
 
 def test_static_page_is_a_copy():

@@ -10,8 +10,16 @@ of iterative refinement. The kernels, the trailing-edge gap panel and the
 sharp-TE row blend are the reference's, line for line; see that module's
 comments for their derivation.
 
-Dense float32 algebra throughout (``torch.linalg.lu_factor``/``lu_solve``,
-full-float32 matvecs with TF32 off, see ``device``).
+Dense float32 algebra throughout (``torch.linalg.lu_factor_ex``/
+``lu_solve``, full-float32 matvecs with TF32 off, see ``device``).
+
+Leading axes of a paneling are lanes, one geometry each (the reference's
+``vmap`` over geometries): ``build_operator`` then builds B operators at
+once (B influence fills, one batched LU), and ``solve_inviscid`` solves
+each at one alpha. A lane's operator and solution equal the one-geometry
+ones bit for bit on the CPU: matrix-vector products, which a CPU BLAS
+rounds differently when batched, go lane by lane (``lane_mm``); a
+degenerate lane gives NaNs and neither raises nor touches the others.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ __all__ = [
     "InviscidOperator",
     "InviscidSolution",
     "build_operator",
+    "lane_mm",
     "operator_from_numpy",
     "solve_inviscid",
     "velocity_at_points",
@@ -41,15 +50,15 @@ _TWO_PI = 2.0 * math.pi
 def _local_frame(px, py, pan: Paneling):
     """Panel-local coordinates of points (P,) w.r.t. all panels (N,).
 
-    Returns (xi, eta, length) each of shape (P, N).
+    Returns (xi, eta, length) each of shape (P, N) (with lanes (B, P, N)).
     """
-    dxp = px[:, None] - pan.xp[None, :-1]
-    dyp = py[:, None] - pan.yp[None, :-1]
-    c = pan.tx[None, :]
-    s = pan.ty[None, :]
+    dxp = px[..., :, None] - pan.xp[..., None, :-1]
+    dyp = py[..., :, None] - pan.yp[..., None, :-1]
+    c = pan.tx[..., None, :]
+    s = pan.ty[..., None, :]
     xi = dxp * c + dyp * s
     eta = -dxp * s + dyp * c
-    return xi, eta, pan.length[None, :]
+    return xi, eta, pan.length[..., None, :]
 
 
 def _kernels(xi, eta, l, self_mask=None):
@@ -76,8 +85,8 @@ def _kernels(xi, eta, l, self_mask=None):
 
 
 def _to_global(u, v, pan: Paneling):
-    c = pan.tx[None, :]
-    s = pan.ty[None, :]
+    c = pan.tx[..., None, :]
+    s = pan.ty[..., None, :]
     return u * c - v * s, u * s + v * c
 
 
@@ -89,16 +98,16 @@ def _te_maps(px, py, pan: Paneling):
     node, ``t`` the downstream TE bisector). Returns global-frame (u, v),
     each (P,); for a closed TE the maps go smoothly to zero.
     """
-    x_u, y_u = pan.xp[0], pan.yp[0]
-    x_l, y_l = pan.xp[-1], pan.yp[-1]
+    x_u, y_u = pan.xp[..., :1], pan.yp[..., :1]
+    x_l, y_l = pan.xp[..., -1:], pan.yp[..., -1:]
     dx, dy = x_u - x_l, y_u - y_l
     gap = torch.hypot(dx, dy)
     inv = 1.0 / clip(gap, 1e-12)
     sx, sy = dx * inv, dy * inv
     # Downstream TE bisector: panel 0 runs TE->LE on the upper surface
     # (reverse it), panel N-1 runs LE->TE on the lower surface.
-    bx = 0.5 * (-pan.tx[0] + pan.tx[-1])
-    by = 0.5 * (-pan.ty[0] + pan.ty[-1])
+    bx = 0.5 * (-pan.tx[..., :1] + pan.tx[..., -1:])
+    by = 0.5 * (-pan.ty[..., :1] + pan.ty[..., -1:])
     bn = clip(torch.hypot(bx, by), 1e-12)
     bx, by = bx / bn, by / bn
     scs = torch.abs(sx * by - sy * bx)
@@ -158,30 +167,41 @@ class InviscidSolution(NamedTuple):
 
 def _gamma_columns(an_a, an_b):
     """Per-node (P, N+1) columns from per-panel (start, end) (P, N) maps."""
-    p, n = an_a.shape
-    a = an_a.new_zeros((p, n + 1))
-    a[:, :-1] += an_a
-    a[:, 1:] += an_b
+    a = an_a.new_zeros((*an_a.shape[:-1], an_a.shape[-1] + 1))
+    a[..., :-1] += an_a
+    a[..., 1:] += an_b
     return a
+
+
+def lane_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (matrix-matrix or matrix-vector); with a lane axis (``a``
+    (B, m, n), ``b`` (B, n, k) or (B, n)) one product a lane, by a host
+    loop: a CPU BLAS rounds a batched matrix-vector product (and a batched
+    one-column product) differently from the one-geometry product, so a
+    lane would not equal its one-geometry solve."""
+    if a.dim() == 2:
+        return a @ b
+    return torch.stack([ai @ bi for ai, bi in zip(a, b)])
 
 
 def _refined_solve(a_full, lu, piv, rhs, steps: int = 2):
     """LU solve with ``steps`` passes of iterative refinement (full-float32
     residual matvecs): recovers the digits an f32 factorisation loses on
     the ~1e4-conditioned sharp-TE systems. ``rhs`` is (N+1,) or
-    (N+1, K)."""
-    vec = rhs.dim() == 1
-    b = rhs[:, None] if vec else rhs
+    (N+1, K), with the operator's lane axes in front."""
+    vec = rhs.dim() == a_full.dim() - 1
+    b = rhs[..., None] if vec else rhs
     x = torch.linalg.lu_solve(lu, piv, b)
     for _ in range(steps):
-        r = b - a_full @ x
+        r = b - lane_mm(a_full, x)
         x = x + torch.linalg.lu_solve(lu, piv, r)
-    return x[:, 0] if vec else x
+    return x[..., 0] if vec else x
 
 
 def build_operator(pan: Paneling) -> InviscidOperator:
-    """Build and factorise the influence operator for a paneling."""
-    n = pan.xm.shape[0]
+    """Build and factorise the influence operator for a paneling (for each
+    lane of one)."""
+    n = pan.xm.shape[-1]
     dev = pan.xm.device
     self_mask = torch.eye(n, dtype=torch.bool, device=dev)
     xi, eta, l = _local_frame(pan.xm, pan.ym, pan)
@@ -192,10 +212,10 @@ def build_operator(pan: Paneling) -> InviscidOperator:
     ub, vb = _to_global(u_r, v_r, pan)
     us, vs = _to_global(u_s, v_s, pan)
 
-    nx = pan.nx[:, None]
-    ny = pan.ny[:, None]
-    tx = pan.tx[:, None]
-    ty = pan.ty[:, None]
+    nx = pan.nx[..., :, None]
+    ny = pan.ny[..., :, None]
+    tx = pan.tx[..., :, None]
+    ty = pan.ty[..., :, None]
 
     an_a = ua * nx + va * ny
     an_b = ub * nx + vb * ny
@@ -215,45 +235,53 @@ def build_operator(pan: Paneling) -> InviscidOperator:
     at_te = u_te * pan.tx + v_te * pan.ty
 
     an = _gamma_columns(an_a, an_b)
-    an[:, 0] += an_te
-    an[:, n] -= an_te
+    an[..., :, 0] += an_te
+    an[..., :, n] -= an_te
 
     # Sharp-TE regularisation: both sliver tangency rows blend toward
     # one-sided gamma curvature extrapolations into the TE, fully below a
     # 1e-4 c gap and not at all above 1e-3 c.
-    gap = torch.hypot(pan.xp[0] - pan.xp[-1], pan.yp[0] - pan.yp[-1])
+    gap = torch.hypot(pan.xp[..., :1] - pan.xp[..., -1:],
+                      pan.yp[..., :1] - pan.yp[..., -1:])
     t = clip((gap - 1e-4) / 9e-4, 0.0, 1.0)
-    w_sharp = 1.0 - t * t * (3.0 - 2.0 * t)
+    w_sharp = 1.0 - t * t * (3.0 - 2.0 * t)         # (..., 1)
     ex_u = an.new_zeros(n + 1)
     ex_u[0], ex_u[1], ex_u[2] = 1.0, -2.0, 1.0
     ex_l = an.new_zeros(n + 1)
     ex_l[n], ex_l[n - 1], ex_l[n - 2] = 1.0, -2.0, 1.0
-    an[0, :] = an[0, :] * (1.0 - w_sharp) + w_sharp * ex_u
-    an[n - 1, :] = an[n - 1, :] * (1.0 - w_sharp) + w_sharp * ex_l
+    an[..., 0, :] = an[..., 0, :] * (1.0 - w_sharp) + w_sharp * ex_u
+    an[..., n - 1, :] = (an[..., n - 1, :] * (1.0 - w_sharp)
+                         + w_sharp * ex_l)
     # The blended rows' RHS terms scale identically: ``bn`` here, the
     # freestream and wake-source rows through ``rhs_scale``.
-    rhs_scale = an.new_ones(n)
-    rhs_scale[0] = 1.0 - w_sharp
-    rhs_scale[n - 1] = 1.0 - w_sharp
-    bn = bn * rhs_scale[:, None]
+    rhs_scale = an.new_ones(an.shape[:-1])
+    rhs_scale[..., 0] = 1.0 - w_sharp[..., 0]
+    rhs_scale[..., n - 1] = 1.0 - w_sharp[..., 0]
+    bn = bn * rhs_scale[..., :, None]
 
-    a_full = an.new_zeros((n + 1, n + 1))
-    a_full[:n, :] = an
+    a_full = an.new_zeros((*an.shape[:-2], n + 1, n + 1))
+    a_full[..., :n, :] = an
     # Kutta: gamma at the two trailing-edge nodes cancel.
-    a_full[n, 0] = 1.0
-    a_full[n, n] = 1.0
+    a_full[..., n, 0] = 1.0
+    a_full[..., n, n] = 1.0
 
-    lu, piv = torch.linalg.lu_factor(a_full)
+    # ``_ex``: a singular (degenerate) lane gives NaNs, no error and no
+    # host read. A matrix with a NaN entry factors to NaN, as in JAX (a
+    # batched LU on the card leaves part of such a factor finite, and the
+    # solves would then run on it).
+    lu, piv, _info = torch.linalg.lu_factor_ex(a_full)
+    lu = torch.where(torch.isnan(a_full).any(-1).any(-1)[..., None, None],
+                     torch.nan, lu)
 
     at_full = _gamma_columns(at_a, at_b)              # (N, N+1)
-    at_full[:, 0] += at_te
-    at_full[:, n] -= at_te
+    at_full[..., :, 0] += at_te
+    at_full[..., :, n] -= at_te
 
     # Edge-velocity sensitivity to transpiration sources:
     #   Vt(sigma) = Vt0 + (At A^-1 (-Bn) + Bt) sigma
-    rhs = torch.cat([-bn, bn.new_zeros((1, n))], dim=0)
+    rhs = torch.cat([-bn, bn.new_zeros((*bn.shape[:-2], 1, n))], dim=-2)
     ginf = _refined_solve(a_full, lu, piv, rhs)       # (N+1, N)
-    due_dsigma = at_full @ ginf + bt
+    due_dsigma = lane_mm(at_full, ginf) + bt
 
     return InviscidOperator(pan, a_full, lu, piv, bn, at_a, at_b, bt,
                             due_dsigma, ginf, at_full, rhs_scale)
@@ -270,7 +298,7 @@ def operator_from_numpy(fields: Mapping, device=None) -> InviscidOperator:
         return torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
 
     pan = Paneling(**{k: t(fields["pan"][k]) for k in Paneling._fields})
-    lu, piv = torch.linalg.lu_factor(t(fields["a_full"]))
+    lu, piv, _info = torch.linalg.lu_factor_ex(t(fields["a_full"]))
     rest = {k: t(fields[k]) for k in InviscidOperator._fields
             if k not in ("pan", "lu", "piv")}
     return InviscidOperator(pan=pan, lu=lu, piv=piv, **rest)
@@ -293,26 +321,30 @@ def solve_inviscid(
     from the boundary layer; ``None`` is the pure inviscid path.
     ``alpha_deg`` may be a vector of A angles (a 1-D tensor or array): the
     solution's arrays then carry a leading axis of A, one solve per angle
-    as ``vmap`` over alpha, by one multi-column LU solve.
+    as ``vmap`` over alpha, by one multi-column LU solve. An operator with
+    lanes takes one alpha for all of them and gives one solution a lane.
     """
     pan = op.pan
     ca, sa = _freestream(alpha_deg, pan.xm)
+    lanes = op.a_full.dim() > 2
+    if ca.dim() and lanes:
+        raise ValueError("an operator with lanes takes one alpha")
     uinf, vinf = (ca[:, None], sa[:, None]) if ca.dim() else (ca, sa)
 
     rhs_n = op.rhs_scale * -(uinf * pan.nx + vinf * pan.ny)
     if sigma is not None:
-        rhs_n = rhs_n - op.bn @ sigma
+        rhs_n = rhs_n - lane_mm(op.bn, sigma)
     rhs = torch.cat([rhs_n, rhs_n.new_zeros((*rhs_n.shape[:-1], 1))], -1)
 
-    if rhs.dim() > 1:
+    if rhs.dim() > 1 and not lanes:
         gamma = _refined_solve(op.a_full, op.lu, op.piv, rhs.T).T
         vt = uinf * pan.tx + vinf * pan.ty + gamma @ op.at_full.T
     else:
         gamma = _refined_solve(op.a_full, op.lu, op.piv, rhs)
         vt = uinf * pan.tx + vinf * pan.ty
-        vt = vt + op.at_full @ gamma
+        vt = vt + lane_mm(op.at_full, gamma)
     if sigma is not None:
-        vt = vt + op.bt @ sigma
+        vt = vt + lane_mm(op.bt, sigma)
 
     cp = 1.0 - vt * vt
 

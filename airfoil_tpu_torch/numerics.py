@@ -11,8 +11,9 @@ forward-mode dual type for the boundary-layer march.
   ``jax.jvp`` does.
 - ``gradient``: ``jnp.gradient`` of a 1-D array with unit spacing (central
   differences inside, one-sided at the ends), which is ``torch.gradient``.
-- ``nanmax``/``nanmin``: NaN-ignoring reductions to a 0-d tensor; NaN when
-  every element is NaN. No host synchronisation.
+- ``nanmax``/``nanmin``: NaN-ignoring reductions over the first axis (of a
+  1-D tensor: to a 0-d one); NaN where every element is NaN. No host
+  synchronisation.
 - ``clip``, ``maximum``, ``minimum``: as JAX writes ``jnp.clip``
   (``minimum(hi, maximum(lo, x))``), NaN-propagating, with the derivative
   split 0.5/0.5 at a tie as in JAX (``torch.clamp``'s is 1 at the bound).
@@ -347,8 +348,10 @@ def interp(x, xp: torch.Tensor, fp):
     n = xp.shape[-1]
     xv = value(x)
     lanes = xp.dim() > 1
-    i = ((xp.unsqueeze(-2) if lanes else xp)
-         <= xv.unsqueeze(-1)).sum(-1).clamp(1, n - 1)
+    i = ((xp.unsqueeze(-2) if lanes else xp) <= xv.unsqueeze(-1)).sum(-1)
+    # ``jnp.searchsorted`` sorts a NaN query after every point: the last
+    # interval, so that the NaN reaches the result.
+    i = torch.where(torch.isnan(xv), n, i).clamp(1, n - 1)
     rows = lanes or value(fp).dim() > 1
 
     def at(a, j):      # a[j], written so that vmap never sees a 0-d index
@@ -379,15 +382,15 @@ def gradient(f: torch.Tensor) -> torch.Tensor:
 
 def _nan_reduce(x: torch.Tensor, fill: float, reduce) -> torch.Tensor:
     nan = torch.isnan(x)
-    out = reduce(torch.where(nan, fill, x))
-    return torch.where(nan.all(), torch.nan, out)
+    out = reduce(torch.where(nan, fill, x), 0)
+    return torch.where(nan.all(0), torch.nan, out)
 
 
 def nanmax(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmax(x)`` over all elements."""
-    return _nan_reduce(x, -torch.inf, torch.max)
+    """``jnp.nanmax(x, axis=0)``."""
+    return _nan_reduce(x, -torch.inf, torch.amax)
 
 
 def nanmin(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.nanmin(x)`` over all elements."""
-    return _nan_reduce(x, torch.inf, torch.min)
+    """``jnp.nanmin(x, axis=0)``."""
+    return _nan_reduce(x, torch.inf, torch.amin)

@@ -55,8 +55,19 @@ def _as_tensor(a, device=None) -> torch.Tensor:
 
 
 def _arc_length(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    seg = torch.hypot(torch.diff(x), torch.diff(y))
-    return torch.cat([x.new_zeros(1), torch.cumsum(seg, 0)])
+    """Node arc lengths. Loops with lanes accumulate them in float64, as
+    torch's CPU ``cumsum`` of float32 does: the card's float32 scan over
+    many rows rounds differently from the CPU's (and from one row's), and a
+    degenerate loop's operator turns on those ulps (NaN on the CPU and in
+    JAX, finite on the card). One loop keeps the float32 ``cumsum``: the
+    rounding on the card that the single-geometry paths' checks hold (the
+    two agree on the CPU)."""
+    seg = torch.hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
+    if seg.dim() > 1:
+        arc = torch.cumsum(seg.double(), -1).to(seg.dtype)
+    else:
+        arc = torch.cumsum(seg, -1)
+    return torch.cat([x.new_zeros((*x.shape[:-1], 1)), arc], -1)
 
 
 def repanel(
@@ -72,12 +83,13 @@ def repanel(
     cosine law; ``'cosine'`` is one cosine over the whole arc;
     ``'uniform'`` is uniform in arc length. ``coords`` may be a tensor (its
     device is kept) or an array (placed on ``device``, see
-    ``resolve_device``).
+    ``resolve_device``). Leading axes of ``coords`` are lanes (one loop
+    each, as ``vmap``), and so are those of the returned nodes.
     """
     coords = _as_tensor(coords, device)
-    x, y = coords[:, 0], coords[:, 1]
+    x, y = coords[..., 0], coords[..., 1]
     arc = _arc_length(x, y)
-    total = arc[-1]
+    total = arc[..., -1:]
     kw = dict(dtype=DTYPE, device=coords.device)
     if spacing == "cosine":
         beta = torch.linspace(0.0, math.pi, n_panels + 1, **kw)
@@ -88,21 +100,23 @@ def repanel(
         if n_panels % 2:
             raise ValueError("'airfoil' spacing requires an even n_panels")
         half = n_panels // 2
-        s_le = arc[torch.argmin(x)]
+        s_le = torch.take_along_dim(
+            arc, torch.argmin(x, -1, keepdim=True), -1)
         beta = torch.linspace(0.0, math.pi, half + 1, **kw)
         ramp = 0.5 * (1.0 - torch.cos(beta))
         s_up = s_le * ramp
         s_lo = s_le + (total - s_le) * ramp
-        s_new = torch.cat([s_up, s_lo[1:]])
+        s_new = torch.cat([s_up, s_lo[..., 1:]], -1)
     else:
         raise ValueError(f"unknown spacing {spacing!r}")
     return interp(s_new, arc, x), interp(s_new, arc, y)
 
 
 def panel_geometry(xp: torch.Tensor, yp: torch.Tensor) -> Paneling:
-    """Compute midpoints, tangents, inward normals, and lengths."""
-    dx = torch.diff(xp)
-    dy = torch.diff(yp)
+    """Compute midpoints, tangents, inward normals, and lengths (leading
+    axes of the nodes are lanes)."""
+    dx = torch.diff(xp, dim=-1)
+    dy = torch.diff(yp, dim=-1)
     length = torch.hypot(dx, dy) + 1e-14
     tx = dx / length
     ty = dy / length
@@ -110,8 +124,8 @@ def panel_geometry(xp: torch.Tensor, yp: torch.Tensor) -> Paneling:
     # to the left of the tangent, i.e. (-ty, tx).
     nx = -ty
     ny = tx
-    xm = 0.5 * (xp[:-1] + xp[1:])
-    ym = 0.5 * (yp[:-1] + yp[1:])
+    xm = 0.5 * (xp[..., :-1] + xp[..., 1:])
+    ym = 0.5 * (yp[..., :-1] + yp[..., 1:])
     s = _arc_length(xp, yp)
     return Paneling(xp, yp, xm, ym, tx, ty, nx, ny, length, s)
 

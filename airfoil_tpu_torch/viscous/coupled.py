@@ -17,6 +17,18 @@
 
 The coupling loop reads nothing back to the host: ``converged`` stays a
 bool tensor.
+
+Geometries are lanes (the reference's ``vmap`` of the solve over
+geometries, ``bench/parser_benchmark.py``): ``solve_viscous`` takes one
+operator, one with a lane axis, or a list of B operators (stacked), and
+each coupling pass is one side march of 2B lanes (the upper sides, then
+the lower ones) and one wake march of B lanes, whatever B is. Every other
+step acts lane by lane, so a lane's result does not depend on the others
+(a non-finite lane stays in its lane). On the card a lane equals its
+one-geometry solve up to how the library batches reductions; on the CPU
+it equals it bit for bit below 16 geometries (torch's CPU ``pow`` of 32
+elements or more, in the march's closures, takes a vectorised path that
+rounds differently from its one-element path).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from airfoil_tpu_torch.device import DTYPE
 from airfoil_tpu_torch.inviscid.panel_solver import (
     InviscidOperator,
     _freestream,
+    lane_mm,
     solve_inviscid,
 )
 from airfoil_tpu_torch import numerics as nm
@@ -41,7 +54,7 @@ from airfoil_tpu_torch.viscous.wake import (
     build_wake_operator,
 )
 
-__all__ = ["SideBL", "ViscousResult", "solve_viscous"]
+__all__ = ["SideBL", "ViscousResult", "solve_viscous", "stack_lanes"]
 
 
 class SideBL(NamedTuple):
@@ -74,8 +87,9 @@ class ViscousResult(NamedTuple):
 
 
 def _at(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    """``a[j]`` for a 0-d index tensor without a host read."""
-    return a[j.reshape(1)][0]
+    """``a[..., j]`` for an index tensor of ``a``'s lane shape (0-d for
+    one geometry) without a host read."""
+    return torch.take_along_dim(a, j[..., None], -1)[..., 0]
 
 
 def _station_fractions(m: int, dtype=DTYPE, device=None) -> torch.Tensor:
@@ -86,14 +100,15 @@ def _station_fractions(m: int, dtype=DTYPE, device=None) -> torch.Tensor:
 
 def _find_stagnation(s_mid, vt, s_le):
     """Arc position of the Vt sign change (- on upper, + on lower side)
-    nearest the leading edge ``s_le``."""
-    n = vt.shape[0]
+    nearest the leading edge ``s_le`` (one a lane)."""
+    n = vt.shape[-1]
     crossing = torch.cat([
-        torch.zeros(1, dtype=torch.bool, device=vt.device),
-        (vt[:-1] < 0.0) & (vt[1:] >= 0.0),
-    ])
-    dist = torch.abs(s_mid - s_le) + torch.where(crossing, 0.0, 1e6)
-    j = torch.argmin(dist).clamp(1, n - 1)
+        torch.zeros((*vt.shape[:-1], 1), dtype=torch.bool, device=vt.device),
+        (vt[..., :-1] < 0.0) & (vt[..., 1:] >= 0.0),
+    ], -1)
+    dist = torch.abs(s_mid - s_le[..., None]) + torch.where(crossing, 0.0,
+                                                            1e6)
+    j = torch.argmin(dist, -1).clamp(1, n - 1)
     v0 = _at(vt, j - 1)
     v1 = _at(vt, j)
     dv = v1 - v0
@@ -115,22 +130,23 @@ _TE_UE_MARGIN = 0.01
 
 def _side_stations(pan, vt, s0, upper: bool, m: int):
     """Station grid (arc xi from stagnation), the clamped ue query
-    positions, Ue, x, y for one side."""
-    s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
-    s_in = s_mid[1:-1]
-    vt_in = vt[1:-1]
+    positions, Ue, x, y for one side (of each lane)."""
+    s_mid = 0.5 * (pan.s[..., :-1] + pan.s[..., 1:])
+    s_in = s_mid[..., 1:-1]
+    vt_in = vt[..., 1:-1]
     frac = _station_fractions(m, vt.dtype, vt.device)
+    s0 = s0[..., None]
     if upper:
-        length = s0 - pan.s[0]
+        length = s0 - pan.s[..., :1]
         xi = frac * length
         s_q = s0 - xi
-        s_q_ue = torch.maximum(s_q, pan.s[0] + _TE_UE_MARGIN * length)
+        s_q_ue = torch.maximum(s_q, pan.s[..., :1] + _TE_UE_MARGIN * length)
         ue = -_sample_side(s_in, vt_in, s_q_ue)
     else:
-        length = pan.s[-1] - s0
+        length = pan.s[..., -1:] - s0
         xi = frac * length
         s_q = s0 + xi
-        s_q_ue = torch.minimum(s_q, pan.s[-1] - _TE_UE_MARGIN * length)
+        s_q_ue = torch.minimum(s_q, pan.s[..., -1:] - _TE_UE_MARGIN * length)
         ue = _sample_side(s_in, vt_in, s_q_ue)
     ue = clip(ue, 0.02)
     x = _sample_side(s_mid, pan.xm, s_q)
@@ -220,8 +236,19 @@ def _forces_from_cp(pan, cp, alpha_deg):
     return cl, cm, cdp
 
 
-def _lane(bl: BLState, i: int) -> BLState:
-    return BLState(*(a[i] for a in bl))
+def _side_of(bl2: BLState, i: int, lanes) -> BLState:
+    """Side ``i`` (0 upper, 1 lower) of a march of 2B lanes (the upper
+    sides, then the lower ones), with the geometries' lane shape."""
+    return BLState(*(a.reshape(2, *lanes, *a.shape[1:])[i] for a in bl2))
+
+
+def stack_lanes(trees):
+    """Equal NamedTuples (of NamedTuples) of tensors, one a lane, as one
+    with a lane axis in front of every field."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(trees))
+    return type(first)(*(stack_lanes(f) for f in zip(*trees)))
 
 
 def solve_viscous(
@@ -237,10 +264,16 @@ def solve_viscous(
 ) -> ViscousResult:
     """Coupled viscous solve at one (alpha, Re) on the operator's device.
 
-    Makes 2 x (``coupling_iters`` + 1) march calls (side pair, wake), each
-    one launch of the CUDA march kernel on a CUDA device.
+    ``op`` is one operator, one with a lane axis (B geometries) or a
+    sequence of B operators; the result then has the lane axis in front of
+    every field. Makes 2 x (``coupling_iters`` + 1) march calls (sides,
+    wake), each one launch of the CUDA march kernel on a CUDA device,
+    whatever B is.
     """
+    if not isinstance(op, InviscidOperator):
+        op = stack_lanes(list(op))
     pan = op.pan
+    lanes = pan.xm.shape[:-1]
     dtype, dev = pan.xm.dtype, pan.xm.device
     # Scalars go to the device once, before the loop.
     alpha_deg = torch.as_tensor(alpha_deg, dtype=dtype, device=dev)
@@ -248,32 +281,38 @@ def solve_viscous(
 
     sol0 = solve_inviscid(op, alpha_deg)
     vt0 = sol0.vt
-    n = vt0.shape[0]
+    n = vt0.shape[-1]
     m = n_stations
 
     wop: WakeOperator = build_wake_operator(op, alpha_deg, n_wake=n_wake)
-    te_gap = torch.hypot(pan.xp[0] - pan.xp[-1], pan.yp[0] - pan.yp[-1])
+    te_gap = torch.hypot(pan.xp[..., 0] - pan.xp[..., -1],
+                         pan.yp[..., 0] - pan.yp[..., -1])
 
-    s_le = _at(pan.s, torch.argmin(pan.xp))
-    s_mid = 0.5 * (pan.s[:-1] + pan.s[1:])
+    s_le = _at(pan.s, torch.argmin(pan.xp, -1))
+    s_mid = 0.5 * (pan.s[..., :-1] + pan.s[..., 1:])
+
+    def sides(a, b):
+        return torch.stack([a, b]).reshape(-1, m)
 
     def march_all(sigma_b, sigma_w):
-        vt = vt0 + op.due_dsigma @ sigma_b + wop.dvt_dsigw @ sigma_w
+        vt = (vt0 + lane_mm(op.due_dsigma, sigma_b)
+              + lane_mm(wop.dvt_dsigw, sigma_w))
         s0 = _find_stagnation(s_mid, vt, s_le)
         xi_u, _sq, ue_u, x_u, y_u = _side_stations(pan, vt, s0, True, m)
         xi_l, _sq, ue_l, x_l, y_l = _side_stations(pan, vt, s0, False, m)
-        # The two sides are two lanes of one march.
-        bl2 = kernel.march_side(torch.stack([xi_u, xi_l]),
-                                torch.stack([ue_u, ue_l]),
-                                torch.stack([x_u, x_l]),
-                                nu, n_crit, x_forced_transition)
-        bl_u, bl_l = _lane(bl2, 0), _lane(bl2, 1)
+        # Every side is a lane of one march.
+        bl2 = kernel.march_side(sides(xi_u, xi_l), sides(ue_u, ue_l),
+                                sides(x_u, x_l), nu, n_crit,
+                                x_forced_transition)
+        bl_u, bl_l = _side_of(bl2, 0, lanes), _side_of(bl2, 1, lanes)
 
-        ue_te = 0.5 * (ue_u[-1] + ue_l[-1])
-        ue_w = wop.uw0 + wop.wb @ sigma_b + wop.ww @ sigma_w
-        ue_w = clip(blend_te_continuity(wop.xi, ue_w, ue_te), 0.05)
-        th0 = bl_u.theta[-1] + bl_l.theta[-1]
-        ds0 = bl_u.dstar[-1] + bl_l.dstar[-1] + te_gap
+        ue_te = 0.5 * (ue_u[..., -1] + ue_l[..., -1])
+        ue_w = (wop.uw0 + lane_mm(wop.wb, sigma_b)
+                + lane_mm(wop.ww, sigma_w))
+        ue_w = clip(blend_te_continuity(wop.xi, ue_w, ue_te[..., None]),
+                    0.05)
+        th0 = bl_u.theta[..., -1] + bl_l.theta[..., -1]
+        ds0 = bl_u.dstar[..., -1] + bl_l.dstar[..., -1] + te_gap
 
         ct0 = wake_ctau0(bl_u, bl_l, th0, ds0, ue_te, nu)
         th_w, ds_w, hk_w = kernel.march_wake(wop.xi, ue_w, nu, th0, ds0, ct0)
@@ -285,8 +324,8 @@ def solve_viscous(
     # point; averaging the iterates over the tail extracts its centre, and
     # the CL spread across the window judges convergence.
     avg_from = coupling_iters // 3
-    sigma_b = torch.zeros(n, dtype=dtype, device=dev)
-    sigma_w = torch.zeros(n_wake, dtype=dtype, device=dev)
+    sigma_b = torch.zeros((*lanes, n), dtype=dtype, device=dev)
+    sigma_w = torch.zeros((*lanes, n_wake), dtype=dtype, device=dev)
     acc_b = torch.zeros_like(sigma_b)
     acc_w = torch.zeros_like(sigma_w)
     cl_window = []
@@ -308,7 +347,8 @@ def solve_viscous(
         if it >= avg_from:
             acc_b = acc_b + sigma_b
             acc_w = acc_w + sigma_w
-            vt_now = vt0 + op.due_dsigma @ sigma_b + wop.dvt_dsigw @ sigma_w
+            vt_now = (vt0 + lane_mm(op.due_dsigma, sigma_b)
+                      + lane_mm(wop.dvt_dsigw, sigma_w))
             cl_it, _cm, _cdp = _forces_from_cp(pan, 1.0 - vt_now ** 2,
                                                alpha_deg)
             cl_window.append(cl_it)
@@ -329,23 +369,24 @@ def solve_viscous(
     cl, cm, _cdp_raw = _forces_from_cp(pan, cp, alpha_deg)
 
     # Squire-Young extrapolation from the wake end.
-    h_end = clip(hk_w[-1], 1.0, 2.5)
-    ue_end = clip(ue_w[-1], 0.2, 1.5)
-    cd = 2.0 * th_w[-1] * ue_end ** (0.5 * (h_end + 5.0))
+    h_end = clip(hk_w[..., -1], 1.0, 2.5)
+    ue_end = clip(ue_w[..., -1], 0.2, 1.5)
+    cd = 2.0 * th_w[..., -1] * ue_end ** (0.5 * (h_end + 5.0))
 
     def friction_drag(bl: BLState, ue, x):
         integrand = bl.cf * ue ** 2
-        return torch.sum(0.5 * (integrand[1:] + integrand[:-1])
-                         * torch.abs(torch.diff(x)))
+        return torch.sum(0.5 * (integrand[..., 1:] + integrand[..., :-1])
+                         * torch.abs(torch.diff(x, dim=-1)), -1)
 
     cdf = friction_drag(bl_u, ue_u, x_u) + friction_drag(bl_l, ue_l, x_l)
     cdp = cd - cdf
 
-    sep_u = torch.mean(bl_u.separated.to(dtype))
-    sep_l = torch.mean(bl_l.separated.to(dtype))
+    sep_u = torch.mean(bl_u.separated.to(dtype), -1)
+    sep_l = torch.mean(bl_l.separated.to(dtype), -1)
     sep_fraction = 0.5 * (sep_u + sep_l)
 
-    finite = (torch.isfinite(sigma_b).all() & torch.isfinite(sigma_w).all()
+    finite = (torch.isfinite(sigma_b).all(-1)
+              & torch.isfinite(sigma_w).all(-1)
               & torch.isfinite(cl) & torch.isfinite(cd))
     converged = finite & (cl_spread < 0.12) & (sep_fraction < 0.12)
 

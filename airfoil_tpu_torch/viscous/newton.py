@@ -76,6 +76,7 @@ from airfoil_tpu_torch.viscous.coupled import (
     _sigma_nodal_from_sides,
     _sigma_wake_nodal,
     _smooth_clip_derivative,
+    stack_lanes,
 )
 from airfoil_tpu_torch.viscous.march import BLState, wake_ctau0
 from airfoil_tpu_torch.viscous.wake import (
@@ -870,14 +871,6 @@ def _point_grid(op: InviscidOperator, alpha, n_stations: int, n_wake: int):
     return sol0, wop, grid
 
 
-def _stack(trees):
-    """Stack a sequence of equal NamedTuples of tensors field by field."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(list(trees))
-    return type(first)(*(_stack(f) for f in zip(*trees)))
-
-
 class _LaneOps(NamedTuple):
     """What the lane solve reads of P operators stacked one a lane."""
 
@@ -897,10 +890,11 @@ def _lane_setup(op, alphas: torch.Tensor, n_stations: int, n_wake: int):
               for i, o in enumerate(ops)]
     sols, wops, grids = zip(*points)
     lane_op = op if shared else _LaneOps(
-        _stack([o.pan for o in ops]), torch.stack([o.due_dsigma
-                                                   for o in ops]))
+        stack_lanes([o.pan for o in ops]),
+        torch.stack([o.due_dsigma for o in ops]))
     return (lane_op, torch.stack([s.cl for s in sols]),
-            torch.stack([s.vt for s in sols]), _stack(wops), _stack(grids))
+            torch.stack([s.vt for s in sols]), stack_lanes(wops),
+            stack_lanes(grids))
 
 
 def _n_lanes(op, alphas) -> int:

@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Drives the port's wind-tunnel path, its XFOIL-replacement path, its
-single-point analysis service and its polar and batch analyses
+single-point analysis service, its polar and batch analyses, its
+parser-robustness benchmark, paneling probe and flow field
 (``airfoil_tpu_torch``) on the card and
 fails (non-zero exit, no result line) if any phase fails:
 
@@ -147,6 +148,39 @@ of the reference ensemble's members with the same ``converged``:
     96 and 20 stations with their plain times and bounds; the analyze and
     upload wall times.
 
+Then the parser-robustness benchmark (``bench/parser_benchmark.py``: the
+direct solve over chunks of 32 geometry lanes at Re 2e5, alpha 5), held to
+``tests/golden/torch_bench.json`` (``tests/make_torch_bench_goldens.py``:
+the JAX benchmark at Re (1 + k 2^-23), k = -1, 0, 1), the probe and the
+flow field:
+
+21. parser bench — ``run_benchmark`` over the golden's 500-file corpus on
+    the card with the launch counts set to 0 just before: 17 side launches
+    of 64 lanes and 17 wake launches of 32 a chunk, 32 chunks; O, the
+    verdicts (of 1,000) off all three JAX members, at most S, the most on
+    which one member differs from both others (with the probe's, below);
+    raw, parsed, rescued and regressed within S of the nominal member's;
+    the wall split into operators, lane solves and the rest;
+22. parser tripped — the first raw and parsed chunks tripped at x 0.05:
+    every lane whose three JAX members agree on the verdict and lie within
+    a tenth of each bar (CL 0.025, CD 5 %, Cm 0.01, x_tr 0.05 c; all
+    non-finite counts as agreeing) held to the nominal member at the bars
+    with its verdict, a field non-finite in both agreeing; every march
+    call of the two chunks held to the plain march as in phase 13 (each
+    lane up to where its ensemble spreads, x_transition in the ensemble or
+    between its values, NaN agreeing with NaN);
+23. parser speed — one chunk's wall (operators, solve) and its profile;
+    the march kernels at the benchmark's shapes (64 x 64 sides, 32 x 16
+    wakes) with their bounds;
+24. probe — ``probe_strategies`` for NACA 2412 and the corpus's second
+    file (``af0001_thick_te_lednicer.dat``):
+    each row bit-equal to the port's own solve with its plan, its verdict
+    counted toward O against the JAX probe members; CL and CD printed
+    beside theirs;
+25. flow field — ``compute_flow_field`` of NACA 2412 at alpha 5 (220 x 220)
+    on the card against the port's CPU run: u and v within rtol 1e-4
+    (atol 1e-6), CL within 1e-5, the same number of streamlines.
+
 Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
 operations of its plain version on the same inputs (pointwise torch
@@ -160,7 +194,10 @@ The line before last is the card as nvidia-smi names it, the line before
 that the kernel table (JSON; the march entries add ``newton_*`` keys: the
 Newton path's launches and the kernels at its shapes, and ``polar_*``
 keys: the polar's launches, lanes a launch, and the kernels at 64 and 128
-lanes with their bounds), and the last line
+lanes with their bounds, and ``parser_*`` keys: the parser benchmark's
+launches, lanes a launch, the tripped chunks' largest difference from the
+plain march, and the kernels at its shapes with their device time and
+bounds), and the last line
 the result (JSON). JAX is never imported, nor anything of ``airfoil_tpu``.
 """
 
@@ -168,6 +205,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import csv
 import json
 import os
 import re
@@ -900,10 +938,18 @@ def phase_inviscid(goldens, ops, inviscid):
     return worst
 
 
-def _hold_march(got, want, name: str, stop=None) -> float:
+def _close(a, b, nan_equal: bool = False) -> torch.Tensor:
+    """``a`` within MARCH_RTOL of ``b``, elementwise; with ``nan_equal`` a
+    NaN in both also agrees (a lane broken in both marches)."""
+    ok = (a - b).abs() <= MARCH_RTOL * b.abs()
+    return ok | (a.isnan() & b.isnan()) if nan_equal else ok
+
+
+def _hold_march(got, want, name: str, stop=None,
+                nan_equal: bool = False) -> float:
     """Kernel march ``got`` against plain march ``want`` ((L, M) fields),
-    lane by lane on stations [0, stop[lane]); returns the largest abs
-    difference."""
+    lane by lane on stations [0, stop[lane]) (NaN in both agreeing with
+    ``nan_equal``); returns the largest abs difference."""
     lanes, m = want.theta.shape
     worst = 0.0
     for lane in range(lanes):
@@ -914,10 +960,10 @@ def _hold_march(got, want, name: str, stop=None) -> float:
             a = getattr(got, f)[lane, :k]
             b = getattr(want, f)[lane, :k]
             d = (a - b).abs()
-            worst = max(worst, float(d.max()))
+            worst = max(worst, float(d.nan_to_num(0.0).max()))
             rel = d / b.abs()
-            at = int(rel.argmax())
-            require(bool((d <= MARCH_RTOL * b.abs()).all()),
+            at = int(rel.nan_to_num(0.0).argmax())
+            require(bool(_close(a, b, nan_equal).all()),
                     f"{name} lane {lane} {f}: max rel {float(rel.max()):.3e} "
                     f"at station {at} of {k} (kernel {float(a[at])!r}, plain "
                     f"{float(b[at])!r})")
@@ -929,13 +975,15 @@ def _hold_march(got, want, name: str, stop=None) -> float:
 
 
 def ensemble_stop(ens: dict, fields=("theta", "dstar", "turb", "separated"),
-                  rtol: float = MARCH_RTOL) -> int:
+                  rtol: float = MARCH_RTOL, nan_equal: bool = False) -> int:
     """First station at which a march's rounding ensemble spreads.
 
     ``ens`` maps each of ``fields`` to a (K, M) array (numpy or torch) of
     one lane's K ensemble members, the nominal member in row K // 2. A
     station spreads where a float field leaves ``rtol`` of the nominal
-    member's or a flag differs from it; returns M if none does.
+    member's or a flag differs from it (with ``nan_equal``, also where a
+    member is NaN and the nominal one is not, or the other way round);
+    returns M if none does.
     """
     spread = None
     for f in fields:
@@ -943,6 +991,8 @@ def ensemble_stop(ens: dict, fields=("theta", "dstar", "turb", "separated"),
         c = v[v.shape[0] // 2]
         flag = str(v.dtype) in ("bool", "torch.bool")
         out = v != c if flag else abs(v - c) > rtol * abs(c)
+        if nan_equal and not flag:
+            out = out | (v.isnan() != c.isnan())
         out = np.asarray(out.tolist()).any(0)
         spread = out if spread is None else spread | out
     return int(np.argmax(spread)) if spread.any() else len(spread)
@@ -1412,7 +1462,7 @@ NEWTON_SHAPE = {"n_stations": 96, "n_wake": 20, "warm_iters": 8,
 def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
                           n_strict_sides, n_strict_wakes, label,
                           te_tail=TE_TAIL, stage="newton march",
-                          xtr_between=False):
+                          xtr_between=False, nan_equal=False):
     """The march kernels against the plain march on recorded main-path
     calls: all side calls as the lanes of one batch, all wake calls as
     those of another, each lane with the plain march's rounding ensemble
@@ -1426,6 +1476,8 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
     have one x_transition over the ensemble and may spread only in their
     last ``te_tail`` stations, where ue falls steeply into the trailing
     edge, those of the first ``n_strict_wakes`` wake calls not at all.
+    With ``nan_equal`` (lanes of broken geometries) a NaN agrees with a
+    NaN: in a station, in x_transition, and between ensemble members.
     Each call is also launched at its own shape and must equal its lanes
     of the batch bit for bit. Returns ({kernel: largest abs difference},
     the batch of side lanes)."""
@@ -1455,9 +1507,12 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
     for lane in range(n_l):
         rows = slice(lane * k, (lane + 1) * k)
         stop.append(ensemble_stop({f: getattr(want, f)[rows]
-                                   for f in HELD_FIELDS}, HELD_FIELDS))
+                                   for f in HELD_FIELDS}, HELD_FIELDS,
+                                  nan_equal=nan_equal))
         xtrs = set(want.x_transition[rows].tolist())
         xk = float(got.x_transition[nominal[lane]])
+        if nan_equal and np.isnan(xk) and any(np.isnan(x) for x in xtrs):
+            xtrs = {x for x in xtrs if not np.isnan(x)} | {xk}
         if xtr_between and xk not in xtrs and len(xtrs) > 1 \
                 and min(xtrs) <= xk <= max(xtrs):
             between += 1
@@ -1472,7 +1527,8 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
     require(_same_bits(own, _rows(got, nominal)),
             f"{label}: a side march at its own shape differs from its lanes "
             f"of the batch")
-    worst = _hold_march(own, _rows(want, nominal), f"{label} sides", stop)
+    worst = _hold_march(own, _rows(want, nominal), f"{label} sides", stop,
+                        nan_equal)
 
     wb, n_wl = ensemble(_stack_calls(wake_calls, 2))
     mw = wb[0].shape[1]
@@ -1481,7 +1537,8 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
     torch.cuda.synchronize()
     wstop = [ensemble_stop({"theta": want_w[0][lane * k:(lane + 1) * k],
                             "dstar": want_w[1][lane * k:(lane + 1) * k]},
-                           ("theta", "dstar")) for lane in range(n_wl)]
+                           ("theta", "dstar"), nan_equal=nan_equal)
+             for lane in range(n_wl)]
     require(all(t == mw for t in wstop[:n_strict_wakes]),
             f"{label}: strict wakes spread at {wstop[:n_strict_wakes]}")
     own_w = [torch.cat(f) for f in zip(*(
@@ -1495,8 +1552,9 @@ def hold_recorded_marches(dev, mk, plain, side_calls, wake_calls,
         for a, b, f in zip(own_w, want_w, ("theta", "dstar", "hk")):
             a, b = a[lane, :stop_l], b[w_rows[lane], :stop_l]
             d = (a - b).abs()
-            worst_w = max(worst_w, float(d.max()) if d.numel() else 0.0)
-            require(bool((d <= MARCH_RTOL * b.abs()).all()),
+            worst_w = max(worst_w, float(d.nan_to_num(0.0).max())
+                          if d.numel() else 0.0)
+            require(bool(_close(a, b, nan_equal).all()),
                     f"{label} wake lane {lane} {f}: max rel "
                     f"{float((d / b.abs()).max()):.3e}")
     log(f"[{stage}] {label}: {len(side_calls)} side marches ({n_l} "
@@ -2335,6 +2393,380 @@ def word_bound(dev, core, masks, cfg_cls) -> tuple[float, str]:
                  count_ops(core.cell_word, solid))
 
 
+BENCH_GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_bench.json")
+BENCH_PATHS = ("raw", "parsed")
+BENCH_FIELDS = ("cl", "cd", "cm", "sep_fraction", "converged", "xtr_upper",
+                "xtr_lower", "plausible")
+PROBE_NACA = "2412"
+FLOW_ALPHA = 5.0
+FLOW_RTOL, FLOW_ATOL = 1e-4, 1e-6
+FLOW_CL_TOL = 1e-5
+
+
+def bench_records(r, plaus) -> dict:
+    """One list a field over the lanes of a lane-batched solve."""
+    vals = {"cl": r.cl, "cd": r.cd, "cm": r.cm,
+            "sep_fraction": r.sep_fraction, "converged": r.converged,
+            "xtr_upper": r.upper.x_transition,
+            "xtr_lower": r.lower.x_transition, "plausible": plaus}
+    return {f: v.cpu().tolist() for f, v in vals.items()}
+
+
+def _concat(recs: list) -> dict:
+    return {f: sum((r[f] for r in recs), []) for f in BENCH_FIELDS}
+
+
+def flip_count(verdicts: list) -> list:
+    """Per member (of three or more), the verdicts on which it differs from
+    every other member."""
+    return [sum(1 for n in range(len(v))
+                if all(v[n] != o[n] for j, o in enumerate(verdicts)
+                       if j != i))
+            for i, v in enumerate(verdicts)]
+
+
+def _brief(rec: dict, i: int) -> dict:
+    return {f: rec[f][i] for f in ("cl", "cd", "sep_fraction", "converged")}
+
+
+def phase_parser_bench(dev, card, bgold, pb, corpus, mk, work):
+    """The parser benchmark through its entry point (``run_benchmark`` on
+    the card) over the golden's corpus, held to the JAX members: O, the
+    verdicts off all three members, at most S, the members' own flip rate;
+    raw, parsed, rescued and regressed within S of the nominal member's.
+    Returns (files, launches, S, O, {path: card records}, the chunk's
+    side and wake call shapes, timings)."""
+    files = corpus.generate_corpus(os.path.join(work, "corpus"),
+                                   n=bgold["corpus"]["n"],
+                                   seed=bgold["corpus"]["seed"])
+    results, split, lanes = [], {"operators": 0.0, "solves": 0.0}, set()
+    orig_ops, orig_solve = pb.chunk_operators, pb.solve_chunk
+    orig_side, orig_wake = mk.march_side, mk.march_wake
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            if key == "solves":
+                results.append(bench_records(out, pb.plausible(out)))
+            return out
+        return run
+
+    def shapes(name, fn):
+        def run(*args):
+            lanes.add((name, tuple(args[0].shape)))
+            return fn(*args)
+        return run
+
+    pb.chunk_operators = timed("operators", orig_ops)
+    pb.solve_chunk = timed("solves", orig_solve)
+    mk.march_side = shapes("side", orig_side)
+    mk.march_wake = shapes("wake", orig_wake)
+    out_dir = os.path.join(work, "parser_benchmark")
+    try:
+        mk.march_launches = mk.wake_launches = 0
+        t0 = time.perf_counter()
+        summary = pb.run_benchmark(files, out_dir, device=dev)
+        wall = time.perf_counter() - t0
+        launches = {"bl_march": mk.march_launches,
+                    "bl_march_wake": mk.wake_launches}
+    finally:
+        pb.chunk_operators, pb.solve_chunk = orig_ops, orig_solve
+        mk.march_side, mk.march_wake = orig_side, orig_wake
+    n_chunks = len(results)
+    passes = pb.SOLVE_SHAPE["coupling_iters"] + 1
+    require(n_chunks == 2 * -(-len(files) // pb.CHUNK),
+            f"{n_chunks} chunks solved")
+    require(launches == {"bl_march": passes * n_chunks,
+                         "bl_march_wake": passes * n_chunks},
+            f"launches {launches}, want {passes} of each a chunk")
+    m, mw = pb.SOLVE_SHAPE["n_stations"], pb.SOLVE_SHAPE["n_wake"]
+    require(lanes == {("side", (2 * pb.CHUNK, m)), ("wake", (pb.CHUNK, mw))},
+            f"march shapes {sorted(lanes)}")
+    require(summary["device"] == "cuda" and summary["card"] == card,
+            f"summary device {summary['device']}, card {summary['card']}")
+    with open(os.path.join(out_dir, "benchmark_results.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    require([r["name"] for r in rows] == bgold["names"],
+            "the corpus's files differ from the golden's")
+    verdict = {p: [r[f"{p}_converged"] == "True" for r in rows]
+               for p in BENCH_PATHS}
+    half = n_chunks // 2
+    recs = {p: {f: v[:len(files)] for f, v in
+                _concat(results[i * half:(i + 1) * half]).items()}
+            for i, p in enumerate(BENCH_PATHS)}
+
+    ks = [str(k) for k in bgold["members_k"]]
+    members = [bgold["members"][k] for k in ks]
+    nominal = bgold["members"]["0"]
+    s_rate = max(flip_count([sum((mem[p]["verdict"] for p in BENCH_PATHS),
+                                 []) for mem in members]))
+    require(s_rate == bgold["flip_rate"]["S"], "the golden's S")
+    off = []
+    for p in BENCH_PATHS:
+        for i, name in enumerate(bgold["names"]):
+            if all(verdict[p][i] != mem[p]["verdict"][i] for mem in members):
+                off.append(f"{name} {p}: card {_brief(recs[p], i)}, nominal "
+                           f"member {_brief(nominal[p], i)}, members' "
+                           f"verdicts {[mem[p]['verdict'][i] for mem in members]}")
+    for line in off:
+        log(f"[parser bench] off every member: {line}")
+    counts = {key: (summary[key], nominal["summary"][key])
+              for key in ("raw_converged", "parsed_converged", "rescued",
+                          "regressed")}
+    log(f"[parser bench] {len(files)} files through run_benchmark on the "
+        f"card: raw {summary['raw_converged']} ({summary['raw_pct']} %), "
+        f"parsed {summary['parsed_converged']} ({summary['parsed_pct']} %), "
+        f"rescued {summary['rescued']}, regressed {summary['regressed']}, "
+        f"multi-element {summary['n_multi_element']}, degenerate "
+        f"{summary['degenerate_rejected']} (the JAX nominal member "
+        f"{ {k: v[1] for k, v in counts.items()} }, the JAX run itself "
+        f"raw {bgold['reference']['summary']['raw_converged']}, parsed "
+        f"{bgold['reference']['summary']['parsed_converged']}); verdicts off "
+        f"all three members O = {len(off)} of {2 * len(files)}, the "
+        f"members' flip rate S = {s_rate} "
+        f"({bgold['flip_rate']['per_member']}); wall {wall:.3f} s: "
+        f"operators {split['operators']:.3f} s, lane solves "
+        f"{split['solves']:.3f} s, the rest (corpus parse, resample, CSV) "
+        f"{wall - split['operators'] - split['solves']:.3f} s; {n_chunks} "
+        f"chunks of {pb.CHUNK} lanes, {launches['bl_march']} side launches "
+        f"of {2 * pb.CHUNK} lanes and {launches['bl_march_wake']} wake "
+        f"launches of {pb.CHUNK} ({card})")
+    for key, (got, want) in counts.items():
+        require(abs(got - want) <= s_rate,
+                f"{key} {got}, the nominal member's {want}, S {s_rate}")
+    return files, launches, s_rate, off, recs, wall
+
+
+def _spread_free(vals: list, bars) -> bool:
+    """Three members' values of one field within a tenth of its bar (all
+    non-finite counts as agreeing)."""
+    a = np.asarray(vals, np.float64)
+    if not np.isfinite(a).any():
+        return True
+    if not np.isfinite(a).all():
+        return False
+    abs_bar, rel_bar = bars
+    return bool(a.max() - a.min()
+                <= 0.1 * (abs_bar + rel_bar * abs(a[len(a) // 2])))
+
+
+def _held_lane(rec: dict, ref: dict, i: int) -> list:
+    """What fails when lane ``i`` of ``rec`` is held to ``ref``'s at the
+    VISCOUS_BARS, with the verdict equal (non-finite in both agrees)."""
+    bad = []
+    if rec["plausible"][i] != ref["plausible"][i]:
+        bad.append(f"verdict {rec['plausible'][i]} != {ref['plausible'][i]}")
+    for f, (abs_bar, rel_bar) in VISCOUS_BARS.items():
+        a, b = rec[f][i], ref[f][i]
+        if not (np.isfinite(a) or np.isfinite(b)):
+            continue
+        if not abs(a - b) <= abs_bar + rel_bar * abs(b):
+            bad.append(f"{f} {a!r} vs {b!r}")
+    return bad
+
+
+def phase_parser_tripped(dev, card, bgold, pb, mk, plain, files):
+    """The benchmark's first raw and first parsed chunk tripped at the
+    golden's x: every spread-free lane held to the nominal member at
+    VISCOUS_BARS with its verdict; every march call of the two chunks held
+    to the plain march (``hold_recorded_marches``, NaN agreeing with NaN).
+    Returns ({kernel: largest abs difference}, one side call, one wake
+    call)."""
+    from airfoil_tpu_torch.geometry import AirfoilParseError, parse_dat_file
+    first = files[:pb.CHUNK]
+    raw = [np.asarray(g) if len(g) >= 5 else None
+           for g in map(pb.raw_coords_from_file, first)]
+    parsed = []
+    for path in first:
+        try:
+            parsed.append(np.asarray(parse_dat_file(path)[0]))
+        except AirfoilParseError:
+            parsed.append(None)
+    trip = bgold["trip_x"]
+    recs = {}
+    with recording(mk) as calls:
+        for p, geoms in zip(BENCH_PATHS, (raw, parsed)):
+            chunk = pb.resample(geoms)[0]
+            r = pb.solve_chunk(pb.chunk_operators(chunk, dev),
+                               x_forced_transition=trip)
+            recs[p] = bench_records(r, pb.plausible(r))
+    held = spread = 0
+    bad = []
+    for p in BENCH_PATHS:
+        members = [bgold["tripped"][str(k)][p] for k in bgold["members_k"]]
+        nominal = bgold["tripped"]["0"][p]
+        for i in range(pb.CHUNK):
+            free = (len({mem["plausible"][i] for mem in members}) == 1
+                    and all(_spread_free([mem[f][i] for mem in members],
+                                         bars)
+                            for f, bars in VISCOUS_BARS.items()))
+            if not free:
+                spread += 1
+                continue
+            held += 1
+            bad += [f"{p} lane {i} ({os.path.basename(first[i])}): {b}"
+                    for b in _held_lane(recs[p], nominal, i)]
+    log(f"[parser tripped] the first raw and parsed chunks tripped at x "
+        f"{trip}: {held} of {2 * pb.CHUNK} lanes spread-free over the JAX "
+        f"members (held to the nominal member at the bars, verdict equal), "
+        f"{spread} spread; {len(bad)} off" + (f": {bad}" if bad else ""))
+    require(not bad, f"tripped lanes off the nominal member: {bad}")
+    n_side = len(calls["march_side"])
+    require(n_side == len(calls["march_wake"])
+            == 2 * (pb.SOLVE_SHAPE["coupling_iters"] + 1),
+            f"{n_side} side calls")
+    abs_err, _ = hold_recorded_marches(
+        dev, mk, plain, calls["march_side"], calls["march_wake"], 0, 0,
+        "the tripped chunks' marches", stage="parser tripped",
+        xtr_between=True, nan_equal=True)
+    return abs_err, calls["march_side"][0], calls["march_wake"][0]
+
+
+def phase_parser_speed(dev, card, pb, mk, plain, files, side_call,
+                       wake_call):
+    """One chunk's wall and device split; the march kernels at the
+    benchmark's shapes with their bounds. Returns ({kernel: (ms,
+    device ms)}, {kernel: (bound ms, bound by)})."""
+    chunk = pb.resample([np.asarray(g) for g in
+                         map(pb.raw_coords_from_file, files[:pb.CHUNK])
+                         ])[0]
+
+    def one():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops = pb.chunk_operators(chunk, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pb.plausible(pb.solve_chunk(ops)).cpu()
+        return t1 - t0, time.perf_counter() - t1
+
+    one()
+    walls = [one() for _ in range(2)]
+    t_ops = statistics.median(w[0] for w in walls)
+    t_solve = statistics.median(w[1] for w in walls)
+    with traced() as prof:
+        one()
+    ev = kernel_events(prof, "march_side_kernel", "march_wake_kernel")
+    log(f"[parser speed] one chunk ({pb.CHUNK} lanes): operators "
+        f"{t_ops:.3f} s, solve {t_solve:.3f} s (median of 2, synchronised); "
+        f"profiled: {ev['all'][0]} device kernels, "
+        f"{ev['all'][1] / 1e3:.3f} ms of device time (march_side_kernel "
+        f"{ev['march_side_kernel'][0]} x, "
+        f"{ev['march_side_kernel'][1] / 1e3:.3f} ms; march_wake_kernel "
+        f"{ev['march_wake_kernel'][0]} x, "
+        f"{ev['march_wake_kernel'][1] / 1e3:.3f} ms): device busy "
+        f"{ev['all'][1] / 1e3 / ((t_ops + t_solve) * 1e3):.1%} of the "
+        f"wall ({card})")
+    times = {"bl_march": (cuda_ms(lambda: mk.march_side(*side_call), 20),
+                          device_ms(lambda: mk.march_side(*side_call), 10,
+                                    "march_side_kernel")),
+             "bl_march_wake": (cuda_ms(lambda: mk.march_wake(*wake_call),
+                                       20),
+                               device_ms(lambda: mk.march_wake(*wake_call),
+                                         10, "march_wake_kernel"))}
+    bounds = {"bl_march": side_march_bound(mk, plain, side_call)[0],
+              "bl_march_wake": wake_march_bound(mk, plain, wake_call)[0]}
+    for name, shape in (("bl_march", tuple(side_call[0].shape)),
+                        ("bl_march_wake", tuple(wake_call[0].shape))):
+        log(f"[parser speed] {name} at {shape[0]} lanes x {shape[1]} "
+            f"stations: {times[name][0]:.4f} ms (CUDA events, mean of 20), "
+            f"device {times[name][1]:.4f} ms, bound "
+            f"{bounds[name][0] * 1e3:.3f} us ({bounds[name][1]}) ({card})")
+    return times, bounds
+
+
+def phase_probe(dev, card, bgold, probe, naca4, parse_dat_file, files):
+    """``probe_strategies`` on the card for NACA 2412 and the corpus's
+    second file (af0001): each row bit-equal to the port's own solve with
+    its plan; returns the rows' verdicts off all three JAX members."""
+    targets = {"naca2412": np.asarray(naca4(2, 4, 12, 100))}
+    targets[os.path.basename(files[1])] = np.asarray(
+        parse_dat_file(files[1])[0])
+    require(list(targets) == list(bgold["probe"]), "the probe's airfoils")
+    off = []
+    for name, coords in targets.items():
+        solved = []
+        orig = probe._solve_with
+
+        def kept(*args, **kwargs):
+            solved.append(orig(*args, **kwargs))
+            return solved[-1]
+
+        probe._solve_with = kept
+        try:
+            t0 = time.perf_counter()
+            rows = probe.probe_strategies(coords, 5.0, 2e5, device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            probe._solve_with = orig
+        require([r["strategy"] for r in rows] == list(probe.STRATEGIES)
+                 and len(solved) == len(rows), f"{name}: probe rows {rows}")
+        members = bgold["probe"][name]
+        parts = []
+        for row, res in zip(rows, solved):
+            st = row["strategy"]
+            again = probe._solve_with(coords, 5.0, 2e5, device=dev,
+                                      **probe.PLANS[st])
+            fields = ("cl", "cd", "cm", "sep_fraction", "converged")
+            require(_same_bits([getattr(res, f) for f in fields],
+                               [getattr(again, f) for f in fields]),
+                    f"{name} {st}: the row's solve differs from the plan's")
+            require(row["CL"] == round(float(res.cl), 4)
+                    and row["CD"] == round(float(res.cd), 5),
+                    f"{name} {st}: row {row}")
+            mem = [members[str(k)][st] for k in bgold["members_k"]]
+            if all(row["converged"] != m["converged"] for m in mem):
+                off.append(f"{name} {st}: card {row}, members "
+                           f"{[(m['converged'], m['cl'], m['cd']) for m in mem]}")
+            parts.append(
+                f"{st} {row['converged']} CL {row['CL']} CD {row['CD']} "
+                f"(members {[m['converged'] for m in mem]}, CL "
+                f"{[round(m['cl'], 4) for m in mem]}, CD "
+                f"{[round(m['cd'], 5) for m in mem]})")
+        log(f"[probe] {name}: {wall:.3f} s for {len(rows)} strategies, each "
+            f"row bit-equal to its plan's solve; " + "; ".join(parts)
+            + f" ({card})")
+    for line in off:
+        log(f"[probe] off every member: {line}")
+    return off
+
+
+def phase_flow_field(dev, card, flowfield, naca4):
+    """``compute_flow_field`` of NACA 2412 at alpha 5 on the card against
+    the port's CPU run: u and v within FLOW_RTOL (FLOW_ATOL), CL within
+    FLOW_CL_TOL, the same streamline count. Returns the card's wall."""
+    coords = np.asarray(naca4(2, 4, 12, 100))
+    t0 = time.perf_counter()
+    ff = flowfield.compute_flow_field(coords, FLOW_ALPHA, device=dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = flowfield.compute_flow_field(coords, FLOW_ALPHA, device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    for f in ("u", "v"):
+        a, b = getattr(ff, f), getattr(ref, f)
+        require(np.array_equal(np.isnan(a), np.isnan(b))
+                and np.allclose(a, b, rtol=FLOW_RTOL, atol=FLOW_ATOL,
+                                equal_nan=True),
+                f"flow field {f}: max abs "
+                f"{np.nanmax(np.abs(a - b)):.3e}")
+    require(abs(ff.cl - ref.cl) <= FLOW_CL_TOL, f"CL {ff.cl} vs {ref.cl}")
+    require(len(ff.streamlines) == len(ref.streamlines),
+            f"{len(ff.streamlines)} streamlines, CPU {len(ref.streamlines)}")
+    g = len(ff.x)
+    log(f"[flow field] NACA 2412 alpha {FLOW_ALPHA}, {g} x {g} grid: wall "
+        f"{wall:.3f} s on the card (CPU run {wall_cpu:.3f} s); CL "
+        f"{ff.cl:.6f} (CPU {ref.cl:.6f}), cp_min {ff.cp_min:.4f}, "
+        f"{int(np.isnan(ff.u).sum())} masked points, {len(ff.streamlines)} "
+        f"streamlines; u and v within rtol {FLOW_RTOL} (atol {FLOW_ATOL}) "
+        f"of the CPU run's, max abs "
+        f"{max(np.nanmax(np.abs(ff.u - ref.u)), np.nanmax(np.abs(ff.v - ref.v))):.3e} ({card})")
+    return wall
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -2353,12 +2785,12 @@ def main() -> int:
     os.environ["AIRFOIL_TPU_RUN_LOG_DIR"] = run_log_dir
     os.environ["AIRFOIL_TPU_STATS_PATH"] = os.path.join(work, "stats.db")
     try:
-        return run(run_log_dir)
+        return run(run_log_dir, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run(run_log_dir: str) -> int:
+def run(run_log_dir: str, work: str) -> int:
     from airfoil_tpu_torch import cuda_build
     from airfoil_tpu_torch.config import LBMConfig
     from airfoil_tpu_torch.api.handlers import parse_upload
@@ -2456,6 +2888,44 @@ def run(run_log_dir: str) -> int:
             **{f"polar_{key}_{lanes}_lanes": v for lanes in (64, 128)
                for key, v in (("ms", at_lanes[lanes][name][0]),
                               ("bound_ms", at_lanes[lanes][name][1][0]))}})
+
+    # The parser benchmark, its tripped chunks, the paneling probe and the
+    # flow field.
+    from airfoil_tpu_torch.bench import corpus as bench_corpus
+    from airfoil_tpu_torch.bench import paneling_probe
+    from airfoil_tpu_torch.bench import parser_benchmark as pb
+    from airfoil_tpu_torch.geometry import parse_dat_file
+    from airfoil_tpu_torch.inviscid import flowfield
+    from airfoil_tpu_torch.models import naca4
+    bgold = load_goldens(BENCH_GOLDENS)
+    t_bench = time.perf_counter()
+    files, parser_launches, s_rate, off, _recs, _wall = phase_parser_bench(
+        dev, card, bgold, pb, bench_corpus, march_kernel, work)
+    parser_abs, p_side, p_wake = phase_parser_tripped(
+        dev, card, bgold, pb, march_kernel, march, files)
+    parser_times, parser_bounds = phase_parser_speed(
+        dev, card, pb, march_kernel, march, files, p_side, p_wake)
+    off += phase_probe(dev, card, bgold, paneling_probe, naca4,
+                       parse_dat_file, files)
+    phase_flow_field(dev, card, flowfield, naca4)
+    log(f"[parser bench] the parser-bench, tripped, speed, probe and flow "
+        f"field phases took {time.perf_counter() - t_bench:.1f} s")
+    require(len(off) <= s_rate,
+            f"{len(off)} verdicts (parser benchmark and probe) off all three "
+            f"JAX members, more than the members' own flip rate S {s_rate}")
+    log(f"[parser bench] O = {len(off)} verdicts (benchmark and probe) off "
+        f"all three JAX members, S = {s_rate}: held")
+    for name in newton_keys:
+        max_abs[name] = max(max_abs[name], parser_abs[name])
+        newton_keys[name].update({
+            "parser_launches": parser_launches[name],
+            "parser_lanes": int((p_side if name == "bl_march" else p_wake
+                                 )[0].shape[0]),
+            "parser_max_abs_err": parser_abs[name],
+            "parser_ms": parser_times[name][0],
+            "parser_device_ms": parser_times[name][1],
+            "parser_bound_ms": parser_bounds[name][0],
+            "parser_bound_by": parser_bounds[name][1]})
 
     refused = [m for m in sys.modules
                if m.partition(".")[0] in ("jax", "airfoil_tpu")]

@@ -244,3 +244,51 @@ def test_bl_schema():
     assert chip_smoke._bl_schema(bl, 3)
     assert not chip_smoke._bl_schema(bl, 4)
     assert not chip_smoke._bl_schema({**bl, "upper": bl["lower"]}, 3)
+
+
+def test_flip_count():
+    """Per member, the verdicts on which it differs from both others."""
+    a = [True, True, False, False]
+    b = [True, False, False, True]
+    c = [False, False, False, True]
+    assert chip_smoke.flip_count([a, b, c]) == [2, 0, 1]
+
+
+@pytest.mark.parametrize("vals,bars,free", [
+    ([0.500, 0.501, 0.502], (0.025, 0.0), True),
+    ([0.500, 0.501, 0.503], (0.025, 0.0), False),
+    ([0.0100, 0.01004, 0.01002], (0.0, 0.05), True),
+    ([0.0100, 0.0101, 0.0100], (0.0, 0.05), False),
+    ([float("nan")] * 3, (0.025, 0.0), True),
+    ([0.5, float("nan"), 0.5], (0.025, 0.0), False)])
+def test_spread_free(vals, bars, free):
+    assert chip_smoke._spread_free(vals, bars) is free
+
+
+def test_held_lane():
+    nan = float("nan")
+    ref = {"cl": [0.5, nan], "cd": [0.010, nan], "cm": [-0.05, nan],
+           "xtr_upper": [0.05, nan], "xtr_lower": [0.05, nan],
+           "plausible": [True, False]}
+    ok = dict(ref, cl=[0.52, nan], cd=[0.0104, nan])
+    assert chip_smoke._held_lane(ok, ref, 0) == []
+    assert chip_smoke._held_lane(ok, ref, 1) == []
+    bad = dict(ref, cd=[0.0106, 0.02], plausible=[False, False])
+    got = chip_smoke._held_lane(bad, ref, 0)
+    assert len(got) == 2 and got[0].startswith("verdict")
+    assert chip_smoke._held_lane(bad, ref, 1) == ["cd 0.02 vs nan"]
+
+
+def test_hold_march_nan_equal():
+    """A NaN station agrees with a NaN only when asked to."""
+    s = torch.linspace(0.01, 1.0, 8).expand(2, -1).contiguous()
+    want = march.march_side(s, torch.ones_like(s), s, 1e-6, 9.0, 1.0)
+    nan = want._replace(**{f: getattr(want, f).clone() for f in
+                           ("theta", "dstar", "hk", "cf")})
+    for f in ("theta", "dstar", "hk", "cf"):
+        getattr(nan, f)[1, 3:] = float("nan")
+    assert chip_smoke._hold_march(nan, nan, "nan", nan_equal=True) >= 0.0
+    with pytest.raises(RuntimeError):
+        chip_smoke._hold_march(nan, nan, "nan")
+    with pytest.raises(RuntimeError):
+        chip_smoke._hold_march(nan, want, "nan", nan_equal=True)

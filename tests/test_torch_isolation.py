@@ -1,8 +1,9 @@
 """The port stands alone: ``airfoil_tpu_torch`` and ``chip_smoke.py`` import
 nothing of ``airfoil_tpu`` and no JAX, and the copies the port keeps of the
 reference's jax-free modules (``config``, ``geometry``, ``models.naca4``,
-the mask rasteriser, the static page, the analysis counter) equal the
-reference's.
+the mask rasteriser, the static page, the analysis counter, and the
+benchmark's corpus generator, UIUC marker, constants, no-repair reader and
+failure/repair classifiers) equal the reference's.
 
 The first test runs a subprocess in which a meta-path finder refuses every
 ``airfoil_tpu`` and ``jax`` module; inside it every module of the port and
@@ -105,7 +106,14 @@ def test_port_imports_nothing_of_the_reference():
                 "airfoil_tpu_torch.viscous.kernel",
                 "airfoil_tpu_torch.polar.sweep",
                 "airfoil_tpu_torch.polar.batch",
-                "airfoil_tpu_torch.bench.parity"):
+                "airfoil_tpu_torch.bench.parity",
+                "airfoil_tpu_torch.bench.parser_benchmark",
+                "airfoil_tpu_torch.bench.corpus",
+                "airfoil_tpu_torch.bench.uiuc",
+                "airfoil_tpu_torch.bench.classify_failures",
+                "airfoil_tpu_torch.bench.classify_repairs",
+                "airfoil_tpu_torch.bench.paneling_probe",
+                "airfoil_tpu_torch.inviscid.flowfield"):
         assert mod in got["modules"]
     assert got["finite"] and got["step"] == 2
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
@@ -246,3 +254,62 @@ def test_stats_path():
             "print(json.dumps([p._SQLITE_PATH, r._SQLITE_PATH]))")
     port_path, ref_path = _run(code, env)
     assert port_path == ref_path == "/nowhere/s.db"
+
+
+@pytest.mark.parametrize("name", ["BENCH_REYNOLDS", "BENCH_ALPHA",
+                                  "N_PANELS", "CHUNK"])
+def test_parser_benchmark_constant(name):
+    from airfoil_tpu.bench import parser_benchmark as ref_pb
+    from airfoil_tpu_torch.bench import parser_benchmark as pb
+
+    assert getattr(pb, name) == getattr(ref_pb, name)
+    assert type(getattr(pb, name)) is type(getattr(ref_pb, name))
+
+
+def test_corpus_is_a_copy(tmp_path):
+    """The benchmark's corpus (500 files, seed 0) byte for byte, and what
+    the no-repair reader takes from each file."""
+    from airfoil_tpu.bench.corpus import generate_corpus as ref_generate
+    from airfoil_tpu.bench.parser_benchmark import \
+        raw_coords_from_file as ref_raw
+    from airfoil_tpu_torch.bench.corpus import generate_corpus
+    from airfoil_tpu_torch.bench.parser_benchmark import raw_coords_from_file
+
+    got = generate_corpus(str(tmp_path / "port"), n=500, seed=0)
+    want = ref_generate(str(tmp_path / "ref"), n=500, seed=0)
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want]
+    for a, b in zip(got, want):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), os.path.basename(a)
+        assert raw_coords_from_file(a) == ref_raw(b)
+
+
+def test_corpus_kind_is_a_copy(tmp_path):
+    from airfoil_tpu.bench.uiuc import corpus_kind as ref_kind
+    from airfoil_tpu_torch.bench.uiuc import _MARKER, corpus_kind
+
+    assert corpus_kind(str(tmp_path)) == ref_kind(str(tmp_path)) \
+        == "synthetic"
+    (tmp_path / _MARKER).write_text("fetched\n")
+    assert corpus_kind(str(tmp_path)) == ref_kind(str(tmp_path)) \
+        == "uiuc_real"
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_classifiers_are_copies(fmt):
+    """``classify_failure`` (on the no-repair coordinates) and
+    ``classify_repairs`` of every corpus file of one format."""
+    from airfoil_tpu.bench.classify_failures import \
+        classify_failure as ref_failure
+    from airfoil_tpu.bench.classify_repairs import \
+        classify_repairs as ref_repairs
+    from airfoil_tpu_torch.bench.classify_failures import classify_failure
+    from airfoil_tpu_torch.bench.classify_repairs import classify_repairs
+    from airfoil_tpu_torch.bench.parser_benchmark import raw_coords_from_file
+
+    for path in _files_of(fmt):
+        coords = raw_coords_from_file(path)
+        name = os.path.basename(path)
+        assert classify_failure(coords) == ref_failure(coords), name
+        assert classify_repairs(path) == ref_repairs(path), name

@@ -11,6 +11,7 @@ from airfoil_tpu_torch.lbm.kernel import (cell_word, lbm_steps, lbm_steps_tiled,
                                           prefers_tiled)
 from airfoil_tpu_torch.lbm.runner import LBMState, WindTunnel
 from airfoil_tpu_torch.lbm.bench import bench_mlups
+from airfoil_tpu_torch.lbm.sharded import dryrun_sharded_step, sharded_lbm_steps
 
 __all__ = [
     "D2Q9_E", "D2Q9_W", "D2Q9_OPP",
@@ -20,4 +21,5 @@ __all__ = [
     "cell_word", "lbm_steps", "lbm_steps_tiled", "prefers_tiled",
     "LBMState", "WindTunnel",
     "bench_mlups",
+    "dryrun_sharded_step", "sharded_lbm_steps",
 ]

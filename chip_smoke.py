@@ -2,8 +2,8 @@
 
 Drives the port's wind-tunnel path, its XFOIL-replacement path, its
 single-point analysis service, its polar and batch analyses, its
-parser-robustness benchmark, paneling probe and flow field
-(``airfoil_tpu_torch``) on the card and
+parser-robustness benchmark, paneling probe and flow field, and its
+multi-device paths (``airfoil_tpu_torch``) on the card and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
@@ -141,7 +141,7 @@ of the reference ensemble's members with the same ``converged``:
     polar to the JSON's rounding, ``POST /batch/`` with the two files (N
     parts named ``files``) equal to the library's batch, ``GET /stats``
     up by the three analyses served;
-20. newton speed — median wall of 10 default solves, the LM iterations and
+20. newton speed — median wall of 5 default solves, the LM iterations and
     host synchronisations of a solve, its device time and busy share; one
     LM iteration's dispatched operations, device kernels and time, the
     four batched Cholesky solves, ``_reproject_n``; the march kernels at
@@ -181,6 +181,42 @@ flow field:
     on the card against the port's CPU run: u and v within rtol 1e-4
     (atol 1e-6), CL within 1e-5, the same number of streamlines.
 
+Then the multi-device paths (``airfoil_tpu_torch.parallel``,
+``lbm/sharded.py``, ``graft_entry.py``), each through
+``parallel.launch.run``: one process a rank, over 1 rank (an NCCL group;
+one rank runs no collective: its halo exchange is a local copy and its
+gather the block itself) and over 4 ranks sharing the card (gloo, every
+exchange staged through pinned host memory), both built before any rank
+starts:
+
+26. sharded lbm — ``sharded_lbm_steps`` of NACA 2412 at alpha 6 on 640x384
+    (every extended block held by ``lbm_steps``) and 2048x1024 (every one
+    past it: ``lbm_steps_tiled``), 13 steps in rounds of 5 and 128 in
+    rounds of 8, the launch counts set to 0 just before each run and read
+    just after on every rank: one launch a round of the kernel that holds
+    the extended block, none of the other, one ``cell_word`` a rank; the
+    lattice gathered by ``gather_rows`` held to the plain step on the same
+    inputs (rtol 2e-5, atol 2e-6) and, where it is not equal to the
+    unsharded kernel's output bit for bit, the log says so; ms a round;
+    whether gloo's ``all_gather`` takes CUDA tensors;
+27. sharded polar — ``sharded_polar`` of phase 17's points at 1 and 4
+    ranks, each point held jointly to one member of its ensemble in
+    ``tests/golden/torch_parallel.json`` (``tests/make_torch_parallel_goldens.py``:
+    the reference's ``sharded_polar`` on 1 and 4 devices at Re (1 + k
+    2^-23), k = -4..4) with its mode and ``converged``; a point held by
+    no member must share the verdicts of one and lie no farther from its
+    nearest such member than the farthest of the reference's members lies
+    from its own nearest other member at that point (``held_to_spread``);
+    every block's lanes at the reference's own final states
+    (``held_from_states``); each rank's
+    march launches against its walk solves (10 side + 1 wake a pass, 3 + 1
+    a walk solve), its points-pass, walk and rescue split; the
+    single-process ``solve_polar`` of the same points timed beside it;
+28. graft entry — ``graft_entry.entry()`` on the card (NACA 2412, alpha 5,
+    128 panels, 48 stations, 12 passes), its [cl, cd, cm] held jointly to
+    one member of the reference's 9-member ensemble, 13 + 13 march
+    launches; then ``dryrun_multichip(4, backend="gloo")``.
+
 Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
 operations of its plain version on the same inputs (pointwise torch
@@ -197,8 +233,12 @@ keys: the polar's launches, lanes a launch, and the kernels at 64 and 128
 lanes with their bounds, and ``parser_*`` keys: the parser benchmark's
 launches, lanes a launch, the tripped chunks' largest difference from the
 plain march, and the kernels at its shapes with their device time and
-bounds), and the last line
-the result (JSON). JAX is never imported, nor anything of ``airfoil_tpu``.
+bounds; and ``sharded_launches_1_rank`` and ``sharded_launches_4_ranks``:
+the launches of every rank of the sharded LBM's runs (LBM kernels) or of
+the sharded polar's (march kernels); ``sharded_max_abs_err``: the sharded
+lattices' largest difference from the unsharded kernel's;
+``entry_launches``: the graft entry's), and the last line the result
+(JSON). JAX is never imported, nor anything of ``airfoil_tpu``.
 """
 
 from __future__ import annotations
@@ -1447,6 +1487,7 @@ def phase_viscous_speed(card, ops, inviscid, coupled, wake, mk, plain, sides,
 
 # ── the simultaneous-Newton path ────────────────────────────────────────────
 NEWTON_POINT = ("2412", 4.0, 1e6)          # the speed phase's point
+SOLVE_REPEATS = 5   # default Newton solves timed in the speed phase
 TE_TAIL = 5     # trailing-edge stations where a tripped march may spread
 # The fields a march lane is held on: a station is held while the plain
 # march's rounding ensemble stays within MARCH_RTOL in each of them (cf
@@ -2294,13 +2335,14 @@ def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    t_solve = _median_s(solve, 10)
+    t_solve = _median_s(solve, SOLVE_REPEATS)
     with traced() as prof:
         solve()
     ev = kernel_events(prof, "march_side_kernel", "march_wake_kernel")
     log(f"[newton speed] NACA {code} alpha {alpha:g} Re {re:g}, default "
         f"solve_viscous_newton ({N_PANELS} panels, {json.dumps(NEWTON_SHAPE)}"
-        f", <= 4 rounds): median of 10, synchronised, {t_solve * 1e3:.3f} ms; "
+        f", <= 4 rounds): median of {SOLVE_REPEATS}, synchronised, "
+        f"{t_solve * 1e3:.3f} ms; "
         f"{n_lm[0]} LM iterations ({n_lm[0] / iters:g} rounds), converged "
         f"{bool(r.converged)}; {syncs} host synchronisations in a solve; "
         f"profiled solve: {ev['all'][0]} device kernels, "
@@ -2767,6 +2809,363 @@ def phase_flow_field(dev, card, flowfield, naca4):
     return wall
 
 
+# ── The multi-device paths (phases 26-28) ──────────────────────────────────
+
+PARALLEL_GOLDENS = os.path.join(ROOT, "tests", "golden", "torch_parallel.json")
+SHARDED_GRIDS = [(640, 384), (2048, 1024)]     # (nx, ny)
+SHARDED_PLANS = [(13, 5), (128, 8)]             # (steps, halo_steps)
+SHARDED_RANKS = [(1, "nccl"), (4, "gloo")]      # (ranks, backend)
+SHARDED_SEED = 26
+LBM_KERNELS = ("lbm_steps", "lbm_steps_tiled", "cell_word")
+MARCH_KERNELS = ("bl_march", "bl_march_wake")
+ENTRY_BARS = {f: VISCOUS_BARS[f] for f in ("cl", "cd", "cm")}
+
+
+def launch_counts() -> dict:
+    """This process's launch count of every kernel."""
+    from airfoil_tpu_torch.lbm import kernel
+    from airfoil_tpu_torch.viscous import kernel as mk
+    return {"lbm_steps": kernel.launches,
+            "lbm_steps_tiled": kernel.tiled_launches,
+            "cell_word": kernel.word_launches,
+            "bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches}
+
+
+def zero_launch_counts():
+    from airfoil_tpu_torch.lbm import kernel
+    from airfoil_tpu_torch.viscous import kernel as mk
+    kernel.launches = kernel.tiled_launches = kernel.word_launches = 0
+    mk.march_launches = mk.wake_launches = 0
+
+
+def _ranks_synced(mesh):
+    """Every rank's card idle and every rank here."""
+    import torch.distributed as dist
+    torch.cuda.synchronize(mesh.device)
+    if mesh.size > 1:
+        dist.barrier()
+
+
+def _gathered(mesh, obj) -> list:
+    import torch.distributed as dist
+    if mesh.size == 1:
+        return [obj]
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _sharded_lbm_cases(mesh) -> list:
+    """Phase 26 on one rank: every grid and step plan through
+    ``sharded_lbm_steps``, the launch counts set to 0 just before each
+    run and read just after; a second run timed; the gathered lattice
+    compared on rank 0 with the unsharded kernel's output and with the
+    plain step's on the same inputs."""
+    from airfoil_tpu_torch.config import LBMConfig
+    from airfoil_tpu_torch.lbm import core, kernel, masks
+    from airfoil_tpu_torch.lbm.sharded import gather_rows, sharded_lbm_steps
+
+    dev = mesh.device
+    cases = []
+    for nx, ny in SHARDED_GRIDS:
+        cfg = LBMConfig(nx=nx, ny=ny)
+        solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0, cfg),
+                             device=dev)
+        f0 = noisy_state(core, cfg, dev, np.random.default_rng(SHARDED_SEED))
+        rows = ny // mesh.size
+        for steps, halo in SHARDED_PLANS:
+            h = max(1, min(halo, steps, rows))
+            n_rounds = steps // h + (1 if steps % h else 0)
+            tiled = kernel.prefers_tiled(rows + 2 * h, nx,
+                                         *kernel.device_limits(dev))
+
+            def run():
+                return sharded_lbm_steps(mesh, f0, solid, cfg.u0, cfg.tau,
+                                         steps, halo_steps=h)
+            _ranks_synced(mesh)
+            zero_launch_counts()
+            block = run()
+            _ranks_synced(mesh)
+            counts = launch_counts()
+            t0 = time.perf_counter()
+            run()
+            _ranks_synced(mesh)
+            wall = time.perf_counter() - t0
+            full = gather_rows(mesh, block)
+            rec = {"grid": [nx, ny], "steps": steps, "halo": h,
+                   "rounds": n_rounds, "tiled": tiled,
+                   "ms_round": wall * 1e3 / n_rounds,
+                   "launches": _gathered(mesh, counts)}
+            if mesh.rank == 0:
+                whole = kernel.lbm_steps_tiled if kernel.prefers_tiled(
+                    ny, nx, *kernel.device_limits(dev)) else kernel.lbm_steps
+                ref = whole(f0, solid, cfg.u0, cfg.tau, steps)
+                torch.cuda.synchronize()
+                rec["equal"] = bool(torch.equal(full, ref))
+                rec["max_abs"] = float((full - ref).abs().max())
+                plain = core.lbm_step(f0, solid, cfg.u0, cfg.tau, steps)
+                rec["plain_max_abs"] = float((full - plain).abs().max())
+                rec["plain_held"] = bool(torch.allclose(
+                    full, plain, rtol=2e-5, atol=2e-6))
+                del ref, plain
+            cases.append(rec)
+            del block, full
+    return cases
+
+
+def _gloo_cuda_gather(mesh):
+    """Whether gloo's ``all_gather`` takes CUDA tensors (the port stages
+    them through host memory either way)."""
+    import torch.distributed as dist
+    if mesh.backend != "gloo":
+        return None
+    t = torch.full((2,), float(mesh.rank), device=mesh.device)
+    parts = [torch.empty_like(t) for _ in range(mesh.size)]
+    try:
+        dist.all_gather(parts, t)
+    except Exception as exc:              # noqa: BLE001
+        return f"refused: {type(exc).__name__}: {str(exc)[:160]}"
+    torch.cuda.synchronize()
+    ok = all(float(p[0]) == r for r, p in enumerate(parts))
+    return f"taken, {'right' if ok else 'WRONG'} values"
+
+
+def sharded_rank(mesh, polar_args):
+    """One rank of phases 26 and 27: the sharded LBM cases, then the
+    sharded polar (counts set to 0 just before, read just after), each
+    rank's wall, stage split, walk solves and launches gathered."""
+    from airfoil_tpu_torch.parallel import mesh as pmesh
+    from airfoil_tpu_torch.polar import sweep
+
+    lbm = _sharded_lbm_cases(mesh)
+    coords, alphas, re = polar_args
+    _ranks_synced(mesh)
+    sweep.walk_solves.update(cont=0, trip=0)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = pmesh.sharded_polar(mesh, coords, alphas, re)
+    own = time.perf_counter() - t0
+    counts = launch_counts()
+    _ranks_synced(mesh)
+    wall = time.perf_counter() - t0
+    ranks = _gathered(mesh, {"rank": mesh.rank, "wall": own,
+                             "split": dict(pmesh.stage_seconds),
+                             "walk": dict(sweep.walk_solves),
+                             "launches": counts})
+    return {"lbm": lbm, "polar": out, "polar_wall": wall,
+            "polar_ranks": ranks, "gloo_cuda_gather": _gloo_cuda_gather(mesh)}
+
+
+VERDICTS = ("mode", "converged")
+
+
+def members_spread(members) -> float:
+    """The largest distance, in bars (``nearest_member``), from one of the
+    reference's members at a point to the nearest other member with its
+    verdicts: how far the reference's own rounding ensemble puts one run
+    from all the others there. A member alone in its verdicts has no such
+    neighbour and is passed over."""
+    worst = 0.0
+    for i, m in enumerate(members):
+        rest = [(j, o) for j, o in enumerate(members)
+                if j != i and all(o[f] == m[f] for f in VERDICTS)]
+        if rest:
+            worst = max(worst, nearest_member(m, rest)[0])
+    return worst
+
+
+def held_to_spread(rec: dict, golden: dict) -> tuple[list, str]:
+    """A polar point ``rec`` against the reference's ensemble ``golden``:
+    held by ``held_to_polar`` (jointly to one member with its verdicts, or
+    the knife edge); else it must share the verdicts of one member and lie
+    no farther from its nearest such member than ``members_spread``: a
+    rounding basin no member reached, but no farther off the ensemble than
+    the reference's own members lie off one another. Returns (failures,
+    note)."""
+    fails, note = held_to_polar(rec, golden)
+    cands = [(i, m) for i, m in enumerate(golden["members"])
+             if all(m[f] == rec[f] for f in VERDICTS)]
+    if not fails or not cands:
+        return fails, note
+    d, i = nearest_member(rec, cands)
+    spread = members_spread(golden["members"])
+    note = (f"held by no member: nearest member {i} at {d:.3f} bars, the "
+            f"members' own spread {spread:.3f} bars")
+    if d <= spread:
+        return [], note
+    return [f"off every member by more than the members' spread ({note})"
+            ], note
+
+
+def _summed(per_rank: list) -> dict:
+    return {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+
+
+def phase_sharded_lbm(card, results) -> dict:
+    """Phase 26: every sharded LBM case held to the plain step on the same
+    inputs and compared bit for bit with the unsharded kernel's output,
+    through the kernel that holds its extended block, one launch a round
+    on every rank and one word launch a rank. Returns {kernel: {ranks:
+    launches}} and the largest difference from the unsharded kernel."""
+    launches = {k: {} for k in LBM_KERNELS}
+    worst = 0.0
+    for n, backend in SHARDED_RANKS:
+        res = results[n]
+        for k in LBM_KERNELS:
+            launches[k][n] = 0
+        for case in res["lbm"]:
+            total = _summed(case["launches"])
+            used = "lbm_steps_tiled" if case["tiled"] else "lbm_steps"
+            other = "lbm_steps" if case["tiled"] else "lbm_steps_tiled"
+            for k in LBM_KERNELS:
+                launches[k][n] += total[k]
+            nx, ny = case["grid"]
+            label = (f"{nx}x{ny} over {n} rank(s) ({backend}), "
+                     f"{case['steps']} steps in rounds of {case['halo']}")
+            require(all(c[used] == case["rounds"] and c[other] == 0
+                        and c["cell_word"] == 1 for c in case["launches"]),
+                    f"sharded LBM {label}: launches a rank "
+                    f"{case['launches']}, want {case['rounds']} of {used}, "
+                    f"none of {other}, one cell word")
+            worst = max(worst, case["max_abs"])
+            require(case["plain_held"],
+                    f"sharded LBM {label}: off the plain step (max abs "
+                    f"{case['plain_max_abs']:.3e}; the unsharded kernel "
+                    f"{case['max_abs']:.3e})")
+            verdict = (f"within rtol 2e-5, atol 2e-6 of the plain step "
+                       f"(max abs {case['plain_max_abs']:.3e}); "
+                       + ("equal to the unsharded kernel bit for bit"
+                          if case["equal"] else
+                          f"NOT bit-equal to the unsharded kernel (max abs "
+                          f"{case['max_abs']:.3e})"))
+            log(f"[sharded lbm] {label}: {used} on every extended block "
+                f"({ny // n + 2 * case['halo']}x{nx}), launches a rank "
+                f"{[c[used] for c in case['launches']]} (+1 cell word), "
+                f"{case['ms_round']:.3f} ms a round (wall of the second "
+                f"call, synchronised); {verdict} ({card})")
+        if backend == "gloo":
+            log(f"[sharded lbm] gloo all_gather of CUDA tensors on {n} "
+                f"rank(s): {res['gloo_cuda_gather']}")
+        else:
+            log(f"[sharded lbm] {n} rank ({backend}): no collective ran (the "
+                f"halo exchange is a local copy, the gather the rank's own "
+                f"block); only the group's set-up was {backend}'s")
+    return launches, worst
+
+
+def phase_sharded_polar(card, dev, results, gpar, sweep, newton) -> dict:
+    """Phase 27: the sharded polar of the golden points at 1 and 4 ranks,
+    each point held jointly to one member of the reference's ensemble on as
+    many devices (``held_to_polar``); every block's lanes at the
+    reference's own final states (``held_from_states``); each rank's
+    launches against its walk solves; each rank's stage split; then the
+    single-process ``solve_polar`` of the same points. Returns {kernel:
+    {ranks: launches}}.
+
+    With 9 members a point's joint hold is a draw: the reference's own
+    members often lie off all their others. So a point that no member
+    holds passes only with the verdicts of one member and within the
+    members' own spread at that point (``held_to_spread``); every point's
+    distance is logged."""
+    g = gpar["polar"]
+    coords = np.asarray(naca4_coords(*g["naca"]), np.float32)
+    launches = {k: {} for k in MARCH_KERNELS}
+    per_pass = POINTS_SHAPE["warm_iters"] + 2
+    per_cont = CONT_SHAPE["warm_iters"] + 2
+    fails = []
+    for n, backend in SHARDED_RANKS:
+        res = results[n]
+        gm = g["meshes"][str(n)]
+        for i, pg in enumerate(gm["points"]):
+            rec = {"alpha": pg["alpha"]}
+            for j, f in enumerate(("cl", "cd", "cdp", "cm", "mode",
+                                   "converged", "xtr_upper", "xtr_lower",
+                                   "sep_fraction")):
+                v = res["polar"][j][i]
+                rec[f] = (int(v) if f == "mode" else bool(v)
+                          if f == "converged" else float(v))
+            f, note = held_to_spread(rec, pg)
+            fails += [f"{n} rank(s), alpha {pg['alpha']:g}: {x}" for x in f]
+            log(f"[sharded polar] {n} rank(s), alpha {pg['alpha']:g}: "
+                f"{json.dumps(rec)}; ensemble {json.dumps(pg['ensemble'])}; "
+                f"{note} {'ok' if not f else 'FAIL'}")
+        for k in MARCH_KERNELS:
+            launches[k][n] = sum(r["launches"][k] for r in res["polar_ranks"])
+        for r in res["polar_ranks"]:
+            n_walk = r["walk"]["cont"] + r["walk"]["trip"]
+            passes = r["launches"]["bl_march_wake"] - n_walk
+            require(passes in (1, 2) and r["launches"]["bl_march"]
+                    == per_pass * passes + per_cont * n_walk,
+                    f"sharded polar, rank {r['rank']} of {n}: launches "
+                    f"{r['launches']}, walk solves {r['walk']}")
+            s = r["split"]
+            log(f"[sharded polar] {n} rank(s) ({backend}), rank "
+                f"{r['rank']}: {r['wall']:.3f} s (points pass "
+                f"{s['points']:.3f}, walk {s['walk']:.3f}, rescue "
+                f"{s['rescue']:.3f}{'' if passes == 2 else ' (skipped)'}, "
+                f"select {s['select']:.3f}, gather {s['gather']:.3f}); walk "
+                f"{r['walk']['cont']} continuation and {r['walk']['trip']} "
+                f"trip solves; march launches {r['launches']['bl_march']} "
+                f"side + {r['launches']['bl_march_wake']} wake ({card})")
+        log(f"[sharded polar] {n} rank(s) ({backend}): {res['polar_wall']:.3f} "
+            f"s wall (the slowest rank), modes "
+            f"{res['polar'][4].tolist()} ({card})")
+    op, _xp, _yp = sweep._op_kernel(torch.as_tensor(coords, device=dev),
+                                    g["n_panels"])
+    for n, _backend in SHARDED_RANKS:
+        for b, block in enumerate(g["meshes"][str(n)]["blocks"]):
+            held_from_states(newton, op, block, g["re"], dev,
+                             f"the sharded polar's block {b} of {n}")
+    require(not fails, f"sharded polar: {fails}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = sweep.solve_polar(coords, g["alphas"], g["re"], device=dev)
+    wall = time.perf_counter() - t0
+    log(f"[sharded polar] single-process solve_polar of the same "
+        f"{len(g['alphas'])} points (a bucket of "
+        f"{sweep._bucket_size(len(g['alphas']))} lanes): {wall:.3f} s wall, "
+        f"modes {single.mode.tolist()}; sharded over 1 rank "
+        f"{results[1]['polar_wall']:.3f} s, over 4 ranks sharing the card "
+        f"{results[4]['polar_wall']:.3f} s ({card})")
+    return launches
+
+
+def phase_graft_entry(card, gpar, graft_entry):
+    """Phase 28: ``graft_entry.entry()`` on the card, its [cl, cd, cm]
+    held jointly to one member of the reference's ensemble, 13 + 13 march
+    launches; then ``dryrun_multichip(4, backend="gloo")``. Returns the
+    entry's launches."""
+    ge = gpar["entry"]
+    fn, args = graft_entry.entry()
+    require(all(a.device.type == "cuda" for a in args),
+            f"entry's arguments on {[str(a.device) for a in args]}")
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    rec = dict(zip(("cl", "cd", "cm"), out.tolist()))
+    d, i = nearest_member(rec, list(enumerate(ge["members"])), ENTRY_BARS)
+    n_pass = ge["coupling_iters"] + 1
+    log(f"[graft entry] entry(): NACA 2412 alpha 5 at 128 panels, 48 "
+        f"stations, 12 passes: {json.dumps(rec)} in {wall:.3f} s; ensemble "
+        f"{json.dumps(ge['ensemble'])}; nearest member {i} at {d:.3f} bars "
+        f"(CL 0.025, CD 5 %, Cm 0.01); march launches "
+        f"{counts['bl_march']} side + {counts['bl_march_wake']} wake "
+        f"{'ok' if d <= 1.0 else 'FAIL'} ({card})")
+    require(d <= 1.0, f"graft entry {rec} off every member jointly "
+            f"(nearest {i} at {d:.3f} bars)")
+    require(counts["bl_march"] == n_pass and counts["bl_march_wake"] == n_pass,
+            f"graft entry launches {counts}, want {n_pass} + {n_pass}")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4, backend="gloo")
+    log(f"[graft entry] dryrun_multichip(4, backend='gloo'): "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
+    return {k: counts[k] for k in MARCH_KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -2926,6 +3325,37 @@ def run(run_log_dir: str, work: str) -> int:
             "parser_device_ms": parser_times[name][1],
             "parser_bound_ms": parser_bounds[name][0],
             "parser_bound_by": parser_bounds[name][1]})
+
+    # The multi-device paths: the sharded LBM and the sharded polar at 1
+    # rank (NCCL) and 4 ranks sharing the card (gloo), then the graft entry.
+    from airfoil_tpu_torch import graft_entry
+    from airfoil_tpu_torch.parallel import launch as par_launch
+    gpar = load_goldens(PARALLEL_GOLDENS)
+    gp = gpar["polar"]
+    polar_args = (np.asarray(naca4_coords(*gp["naca"]), np.float32),
+                  gp["alphas"], gp["re"])
+    t_par = time.perf_counter()
+    results = {}
+    for n, backend in SHARDED_RANKS:
+        t0 = time.perf_counter()
+        results[n] = par_launch.run(sharded_rank, n, polar_args,
+                                    backend=backend)
+        log(f"[sharded] {n} rank(s) ({backend}): the sharded LBM cases and "
+            f"polar in {time.perf_counter() - t0:.1f} s, start-up included")
+    sharded_launches, sharded_abs = phase_sharded_lbm(card, results)
+    sharded_launches.update(phase_sharded_polar(card, dev, results, gpar,
+                                                sweep, newton))
+    entry_launches = phase_graft_entry(card, gpar, graft_entry)
+    log(f"[sharded] the sharded LBM, sharded polar and graft entry phases "
+        f"took {time.perf_counter() - t_par:.1f} s")
+    for name in KERNELS:
+        keys = newton_keys.setdefault(name, {})
+        keys.update({f"sharded_launches_{n}_rank{'s' if n > 1 else ''}":
+                     sharded_launches[name][n] for n, _b in SHARDED_RANKS})
+        if name in ("lbm_steps", "lbm_steps_tiled"):
+            keys["sharded_max_abs_err"] = sharded_abs
+        if name in entry_launches:
+            keys["entry_launches"] = entry_launches[name]
 
     refused = [m for m in sys.modules
                if m.partition(".")[0] in ("jax", "airfoil_tpu")]

@@ -7,8 +7,9 @@ failure/repair classifiers) equal the reference's.
 
 The first test runs a subprocess in which a meta-path finder refuses every
 ``airfoil_tpu`` and ``jax`` module; inside it every module of the port and
-``chip_smoke`` is imported, a 64x32 ``WindTunnel`` runs on the CPU and an
-upload is parsed. The others hold each copy to the reference on the same
+``chip_smoke`` is imported, a 64x32 ``WindTunnel`` runs on the CPU, an
+upload is parsed, and two gloo ranks (``parallel.launch.run``) run the
+sharded LBM step, each reporting that its own process loaded neither. The others hold each copy to the reference on the same
 inputs: exact values, coordinates and fix messages, and masks element for
 element.
 """
@@ -82,8 +83,15 @@ wt = WindTunnel(coords, cfg=LBMConfig(nx=64, ny=32), device="cpu")
 out = wt.frame(steps=2)
 dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}" for x, y in coords)
 parsed, fixes = parse_upload("naca2412.dat", dat.encode())
+# Two gloo ranks of the sharded LBM step: each reports the refused modules
+# its own process loaded.
+sys.path.insert(0, "tests")
+import torch_parallel_ranks
+from airfoil_tpu_torch.parallel.launch import run
+child_loaded = run(torch_parallel_ranks.dryrun_rank, 2, device="cpu")
 loaded = sorted(m for m in sys.modules if m.partition(".")[0] in REFUSED)
 print(json.dumps({"modules": names, "loaded": loaded,
+                  "child_loaded": child_loaded,
                   "finite": bool(np.isfinite([out["cl"], out["cd"]]).all()),
                   "step": out["step"], "points": len(parsed),
                   "fixes": fixes}))
@@ -99,7 +107,7 @@ def _run(code: str, env=None) -> dict:
 
 def test_port_imports_nothing_of_the_reference():
     got = _run(_ISOLATED)
-    assert got["loaded"] == []
+    assert got["loaded"] == [] and got["child_loaded"] == []
     for mod in ("airfoil_tpu_torch.config", "airfoil_tpu_torch.geometry.parser",
                 "airfoil_tpu_torch.models.naca", "airfoil_tpu_torch.lbm.masks",
                 "airfoil_tpu_torch.api.minihttp",
@@ -113,7 +121,11 @@ def test_port_imports_nothing_of_the_reference():
                 "airfoil_tpu_torch.bench.classify_failures",
                 "airfoil_tpu_torch.bench.classify_repairs",
                 "airfoil_tpu_torch.bench.paneling_probe",
-                "airfoil_tpu_torch.inviscid.flowfield"):
+                "airfoil_tpu_torch.inviscid.flowfield",
+                "airfoil_tpu_torch.parallel.mesh",
+                "airfoil_tpu_torch.parallel.launch",
+                "airfoil_tpu_torch.lbm.sharded",
+                "airfoil_tpu_torch.graft_entry"):
         assert mod in got["modules"]
     assert got["finite"] and got["step"] == 2
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"

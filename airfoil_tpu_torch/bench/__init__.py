@@ -1,7 +1,8 @@
-"""Benchmarks and diagnostics of the port: the parser-robustness benchmark
-over an airfoil corpus (``bench.parser_benchmark``, its corpus and the
-failure/repair classifiers), the paneling probe and the parity harness
-against XFOIL anchors (``bench.parity``)."""
+"""Benchmarks and diagnostics of the port: the headline benchmark
+(``bench.headline``), the parser-robustness benchmark over an airfoil
+corpus (``bench.parser_benchmark``, its corpus and the failure/repair
+classifiers), the paneling probe and the parity harness against XFOIL
+(``bench.parity``)."""
 
 from airfoil_tpu_torch.bench.corpus import generate_corpus
 from airfoil_tpu_torch.bench.parser_benchmark import run_benchmark

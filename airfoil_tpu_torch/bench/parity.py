@@ -1,11 +1,18 @@
 """Parity harness: the port's polar coefficients against XFOIL anchors.
 
-Port of ``airfoil_tpu/bench/parity.py``. The ground truth is the vendored
-anchor dataset ``data/xfoil_truth.json`` (a byte copy of the reference's:
-XFOIL 6.96 ncrit=9 polar anchors with a per-point uncertainty band; see
-its provenance notes). The reference also drives a live XFOIL binary when
-one is installed; the port does not (no binary exists where it runs), so
-every point's ``truth_source`` is ``vendored_table``.
+Port of ``airfoil_tpu/bench/parity.py``. Two ground-truth sources, in
+preference order, as the reference's:
+
+1. a live XFOIL binary (``XFOIL_PATH`` or ``xfoil`` on ``PATH``), run per
+   anchor through ``airfoil_tpu_torch.interop.run_xfoil_if_available``;
+   its answer is exact (an uncertainty band of 0);
+2. the vendored anchor dataset ``data/xfoil_truth.json`` (a byte copy of
+   the reference's: XFOIL 6.96 ncrit=9 polar anchors with a per-point
+   uncertainty band; see its provenance notes).
+
+Each point's ``truth_source`` says which (``xfoil_binary`` or
+``vendored_table``); ``ground_truth`` is ``live xfoil`` when any point used
+the binary.
 
 Each (airfoil, Re) group of anchors is solved through the product path, a
 whole ``solve_polar`` over a 0.5-degree grid from -2 degrees that holds
@@ -25,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -118,14 +126,36 @@ def bench_polar(device=None) -> dict:
     return timing
 
 
-def run_parity(device=None) -> dict:
+def _xfoil_truth(name: str, re_: float, alpha: float):
+    """(CL, CD) of a live XFOIL run of the anchor's section, or ``None``
+    when no binary is found or its run fails."""
+    from airfoil_tpu_torch.interop import run_xfoil_if_available
+    from airfoil_tpu_torch.models import naca4
+
+    with tempfile.TemporaryDirectory() as wd:
+        path = os.path.join(wd, f"{name}.dat")
+        coords = naca4(*_DIGITS[name], 100)
+        with open(path, "w") as f:
+            f.write(f"{name}\n")
+            for x, y in coords:
+                f.write(f" {x:.6f} {y:.6f}\n")
+        out = run_xfoil_if_available(path, re_, alpha, wd)
+    if out is None:
+        return None
+    coeffs = out[0]
+    return coeffs.get("CL"), coeffs.get("CD")
+
+
+def run_parity(use_live_xfoil: bool = True, device=None) -> dict:
     """Every anchor group's polar on ``device`` (see ``resolve_device``)
-    against the vendored table."""
+    against a live XFOIL's answer where one runs (``use_live_xfoil``), else
+    the vendored table."""
     from airfoil_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     anchors = load_truth()
     points = []
+    live_used = False
     groups = {}
     for (name, re_, alpha) in anchors:
         groups.setdefault((name, re_), []).append(alpha)
@@ -135,15 +165,18 @@ def run_parity(device=None) -> dict:
         timing.append(t)
         print(json.dumps(t), file=sys.stderr, flush=True)
     for (name, re_, alpha), anchor in anchors.items():
-        cl_ref, cd_ref = anchor["cl"], anchor["cd"]
+        truth = _xfoil_truth(name, re_, alpha) if use_live_xfoil else None
+        source = "xfoil_binary" if truth else "vendored_table"
+        live_used = live_used or truth is not None
+        cl_ref, cd_ref = truth if truth else (anchor["cl"], anchor["cd"])
         cl, cd, converged = solved[(name, re_)][alpha]
         cl_dev = (100 * (cl - cl_ref) / abs(cl_ref)
                   if abs(cl_ref) > 0.02 else None)
         cd_dev = 100 * (cd - cd_ref) / cd_ref if cd_ref else None
         # Measurability: is the deviation inside the anchor's own
-        # uncertainty band?
-        unc_cl = anchor.get("unc_cl", 0.0)
-        unc_cd = anchor.get("unc_cd_rel", 0.0)
+        # uncertainty band? (Live-XFOIL truth is exact: band = 0.)
+        unc_cl = 0.0 if truth else anchor.get("unc_cl", 0.0)
+        unc_cd = 0.0 if truth else anchor.get("unc_cd_rel", 0.0)
         within = (abs(cl - cl_ref) <= unc_cl
                   and (not cd_ref
                        or abs(cd - cd_ref) <= unc_cd * cd_ref))
@@ -155,7 +188,7 @@ def run_parity(device=None) -> dict:
             "cd_dev_pct": round(cd_dev, 1) if cd_dev is not None else None,
             "unc_cl": unc_cl, "unc_cd_rel": unc_cd,
             "within_unc": bool(within),
-            "converged": converged, "truth_source": "vendored_table",
+            "converged": converged, "truth_source": source,
         })
     cl_devs = [abs(p["cl_dev_pct"]) for p in points
                if p["cl_dev_pct"] is not None and p["converged"]]
@@ -186,7 +219,7 @@ def run_parity(device=None) -> dict:
             float(np.mean([p["converged"] for p in points])), 2),
         "within_unc_fraction": round(
             float(np.mean([p["within_unc"] for p in points])), 2),
-        "ground_truth":
+        "ground_truth": "live xfoil" if live_used else
         "vendored dataset bench/data/xfoil_truth.json (XFOIL 6.96 "
         "ncrit=9 anchors with per-point uncertainty; see its provenance "
         "notes)",

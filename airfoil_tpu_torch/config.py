@@ -1,7 +1,9 @@
-"""Service limits, environment variables and the lattice configuration.
+"""Service limits, environment variables, and the solver and lattice
+configurations.
 
-A copy of the parts of ``airfoil_tpu/config.py`` that the port reads, with
-the same names, values and environment variables: the port keeps its own
+A copy of ``airfoil_tpu/config.py``'s limits, environment variables and
+configuration records (``SolverConfig``, ``LBMConfig``), with the same
+names, values and environment variables: the port keeps its own
 copies and imports nothing of the JAX package. ``tests/test_torch_isolation.py``
 holds the two equal.
 """
@@ -26,6 +28,23 @@ MAX_CONCURRENT_SOLVES = int(os.getenv("AIRFOIL_TPU_MAX_CONCURRENT", "3"))
 # ── Environment ─────────────────────────────────────────────────────────────
 ALLOWED_ORIGINS = os.getenv("ALLOWED_ORIGINS", "*").split(",")
 PORT = int(os.getenv("PORT", "8000"))
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    """Numerics configuration of the solver stack, the reference's defaults.
+    ``n_panels`` matches the reference service's paneling density (XFOIL
+    PANE gives ~140-160 nodes; the frontend vortex solver uses N=160)."""
+
+    n_panels: int = 160          # surface panels (nodes = n_panels + 1)
+    n_wake: int = 40             # wake stations for the viscous march
+    newton_iters: int = 20       # viscous-inviscid coupling iterations
+    station_newton_iters: int = 8  # per-station BL Newton iterations
+    n_crit: float = 9.0          # e^N envelope amplification threshold
+    dtype: str = "float32"
+
+
+DEFAULT_SOLVER = SolverConfig()
 
 
 @dataclass(frozen=True)

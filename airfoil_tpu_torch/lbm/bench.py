@@ -9,7 +9,8 @@ to the plain step on the CPU, and asking for a kernel on the CPU raises.
 kernel where ``lbm_steps`` cannot hold the lattice). The cell word is built
 once, before the timed loop, as the wind tunnel builds it once per mask.
 The result reports what ran. The loop is timed on the host clock between
-two ``torch.cuda.synchronize()`` calls.
+two ``utils.profiling.device_sync`` calls (``torch.cuda.synchronize()`` and
+a read of one value).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from airfoil_tpu_torch.lbm.kernel import (cell_word, device_limits,
                                           prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import rasterize_airfoil
 from airfoil_tpu_torch.models import naca4
+from airfoil_tpu_torch.utils.profiling import device_sync
 
 __all__ = ["bench_mlups"]
 
@@ -60,16 +62,12 @@ def bench_mlups(nx: int = 640, ny: int = 384, steps_per_call: int = 128,
     else:
         step = lbm_step
 
-    def sync():
-        if on_cuda:
-            torch.cuda.synchronize(dev)
-
     f = step(f, mask, cfg.u0, cfg.tau, steps=steps_per_call)
-    sync()
+    device_sync(f)
     t0 = time.perf_counter()
     for _ in range(n_calls):
         f = step(f, mask, cfg.u0, cfg.tau, steps=steps_per_call)
-    sync()
+    device_sync(f)
     dt = time.perf_counter() - t0
 
     site_updates = nx * ny * steps_per_call * n_calls

@@ -1,14 +1,14 @@
-"""NACA 4-digit section generator: a copy of ``naca4`` from
-``airfoil_tpu/models/naca.py`` (NumPy), kept so that the port imports
-nothing of the JAX package. Returns a Selig-ordered loop (TE -> upper ->
-LE -> lower -> TE).
+"""Analytic airfoil shapes: copies of ``naca4``, ``clark_y`` and ``SHAPES``
+from ``airfoil_tpu/models/naca.py`` (NumPy), kept so that the port imports
+nothing of the JAX package. Each returns a Selig-ordered loop (TE -> upper
+-> LE -> lower -> TE).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["naca4"]
+__all__ = ["naca4", "clark_y", "SHAPES"]
 
 
 def naca4(m: float, p: float, t: float, n: int = 50,
@@ -57,3 +57,28 @@ def naca4(m: float, p: float, t: float, n: int = 50,
     upper = np.stack([xu, yu], axis=1)[::-1]       # TE -> LE
     lower = np.stack([xl, yl], axis=1)[1:]         # LE (excl) -> TE
     return np.concatenate([upper, lower], axis=0)
+
+
+_CLARK_Y_PCT = [
+    (100, 0.44), (95, 1.46), (90, 2.22), (80, 3.69), (70, 5.07), (60, 6.23),
+    (50, 7.10), (40, 7.62), (30, 7.79), (25, 7.67), (20, 7.35), (15, 6.79),
+    (10, 5.88), (7.5, 5.23), (5, 4.39), (2.5, 3.18), (1.25, 2.17), (0, 0),
+    (1.25, -1.35), (2.5, -1.93), (5, -2.55), (7.5, -2.90), (10, -3.05),
+    (15, -3.01), (20, -2.75), (25, -2.41), (30, -2.06), (40, -1.38),
+    (50, -0.85), (60, -0.44), (70, -0.16), (80, 0), (90, 0), (95, 0),
+    (100, -0.44),
+]
+
+
+def clark_y() -> np.ndarray:
+    """Clark-Y coordinate table (percent-chord, reference html:118-121)."""
+    return np.array(_CLARK_Y_PCT, dtype=np.float64) / 100.0
+
+
+SHAPES = {
+    "naca0012": lambda: naca4(0, 0, 12, 50),
+    "naca2412": lambda: naca4(2, 4, 12, 50),
+    "naca4412": lambda: naca4(4, 4, 12, 50),
+    "naca6409": lambda: naca4(6, 4, 9, 50),
+    "clark_y": clark_y,
+}

@@ -3,6 +3,11 @@
 from airfoil_tpu_torch.viscous.kernel import march_side
 from airfoil_tpu_torch.viscous.march import BLState, stagnation_ic
 from airfoil_tpu_torch.viscous.coupled import ViscousResult, solve_viscous
+from airfoil_tpu_torch.viscous.newton import (
+    solve_polar_point,
+    solve_polar_point_cont,
+    solve_viscous_newton,
+)
 
 __all__ = [
     "BLState",
@@ -10,4 +15,7 @@ __all__ = [
     "stagnation_ic",
     "ViscousResult",
     "solve_viscous",
+    "solve_viscous_newton",
+    "solve_polar_point",
+    "solve_polar_point_cont",
 ]

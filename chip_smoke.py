@@ -2,8 +2,9 @@
 
 Drives the port's wind-tunnel path, its XFOIL-replacement path, its
 single-point analysis service, its polar and batch analyses, its
-parser-robustness benchmark, paneling probe and flow field, and its
-multi-device paths (``airfoil_tpu_torch``) on the card and
+parser-robustness benchmark, paneling probe and flow field, its
+multi-device paths, and its exact Joukowski anchor, headline bench records,
+profiling utilities and heatmap (``airfoil_tpu_torch``) on the card and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
@@ -210,12 +211,35 @@ starts:
     every block's lanes at the reference's own final states
     (``held_from_states``); each rank's
     march launches against its walk solves (10 side + 1 wake a pass, 3 + 1
-    a walk solve), its points-pass, walk and rescue split; the
-    single-process ``solve_polar`` of the same points timed beside it;
+    a walk solve), its points-pass, walk and rescue split; beside them the
+    wall of phase 17's single-process ``solve_polar`` of the same points
+    (the same geometry, alphas, Re and panels, required), not solved again;
 28. graft entry — ``graft_entry.entry()`` on the card (NACA 2412, alpha 5,
     128 panels, 48 stations, 12 passes), its [cl, cd, cm] held jointly to
     one member of the reference's 9-member ensemble, 13 + 13 march
     launches; then ``dryrun_multichip(4, backend="gloo")``.
+
+Then the exact Joukowski anchor, the headline bench
+(``bench/headline.py``), the profiling utilities (``utils/profiling.py``)
+and the heatmap (``ui/flowviz.py``):
+
+29. models — the four exact Joukowski cases of ``tests/test_inviscid.py``
+    (``models.joukowski``, 160 panels from the card's own ``repanel``):
+    CL within 1.5 % of ``joukowski_exact`` (|CL| < 5e-3 at zero lift), Cp
+    rms < 0.035 for x < 0.98, CL and Cm within 1e-4 relative + 1e-5 of the
+    port's CPU solve of the same nodes;
+30. headline — line 2's records (``bench_lbm``: 640x384 and 384x192
+    through ``lbm_steps``, 2048x1024 through ``lbm_steps_tiled``, 128 steps
+    a call), the launch counts set to 0 just before and read just after:
+    each grid's kernel launched warm-up + n_calls times, the other none,
+    one ``cell_word``; line 1's record from phase 17's ``solve_polar``
+    result and wall (no new solve), its mode counts phase 17's modes;
+    ``stage_timer`` around one 128-step call at 640x384 reads at least the
+    call's CUDA-event time; ``profile_trace`` around one call writes a
+    Chrome trace that names ``lbm_resident_kernel``;
+31. flowviz — ``render_heatmap_png`` of phase 25's card field decodes as a
+    PNG; without matplotlib (an optional package) the phase logs
+    "skipped: no matplotlib".
 
 Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
@@ -237,8 +261,10 @@ bounds; and ``sharded_launches_1_rank`` and ``sharded_launches_4_ranks``:
 the launches of every rank of the sharded LBM's runs (LBM kernels) or of
 the sharded polar's (march kernels); ``sharded_max_abs_err``: the sharded
 lattices' largest difference from the unsharded kernel's;
-``entry_launches``: the graft entry's), and the last line the result
-(JSON). JAX is never imported, nor anything of ``airfoil_tpu``.
+``entry_launches``: the graft entry's; ``headline_launches``: line 2's
+runs (LBM kernels) or the polar line 1 is built from (march kernels)), and
+the last line the result (JSON). JAX is never imported, nor anything of
+``airfoil_tpu``.
 """
 
 from __future__ import annotations
@@ -246,6 +272,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import csv
+import io
 import json
 import os
 import re
@@ -2026,8 +2053,10 @@ def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
     the card, every point held to the reference's ensemble; the sweep's
     marches (launches, lanes) and walk solves counted, the per-point pass's
     marches held to the plain march, its profile, and the march kernels
-    at the polar path's 64 and 128 lanes. Returns (the result, {kernel:
-    its launches}, {kernel: its lanes a launch}, timings)."""
+    at the polar path's 64 and 128 lanes. Returns (the result, its wall
+    seconds, {kernel: its launches}, {kernel: its lanes a launch}, the
+    largest difference from the plain march, timings at 64 and 128
+    lanes)."""
     g = pgold["polar"]
     coords = np.asarray(naca4_coords(*g["naca"]), np.float32)
     mk.march_launches = 0
@@ -2143,7 +2172,7 @@ def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
             f"{at_lanes[lanes]['bl_march_wake'][0]:.4f} ms, bound "
             f"{at_lanes[lanes]['bl_march_wake'][1][0] * 1e3:.3f} us ({card})")
     lanes_of = {"bl_march": sorted(sides), "bl_march_wake": sorted(wakes)}
-    return res, launches, lanes_of, worst, at_lanes
+    return res, wall, launches, lanes_of, worst, at_lanes
 
 
 def phase_batch(dev, pgold, polar, newton, mk):
@@ -2780,7 +2809,7 @@ def phase_probe(dev, card, bgold, probe, naca4, parse_dat_file, files):
 def phase_flow_field(dev, card, flowfield, naca4):
     """``compute_flow_field`` of NACA 2412 at alpha 5 on the card against
     the port's CPU run: u and v within FLOW_RTOL (FLOW_ATOL), CL within
-    FLOW_CL_TOL, the same streamline count. Returns the card's wall."""
+    FLOW_CL_TOL, the same streamline count. Returns the card's field."""
     coords = np.asarray(naca4(2, 4, 12, 100))
     t0 = time.perf_counter()
     ff = flowfield.compute_flow_field(coords, FLOW_ALPHA, device=dev)
@@ -2806,7 +2835,7 @@ def phase_flow_field(dev, card, flowfield, naca4):
         f"streamlines; u and v within rtol {FLOW_RTOL} (atol {FLOW_ATOL}) "
         f"of the CPU run's, max abs "
         f"{max(np.nanmax(np.abs(ff.u - ref.u)), np.nanmax(np.abs(ff.v - ref.v))):.3e} ({card})")
-    return wall
+    return ff
 
 
 # ── The multi-device paths (phases 26-28) ──────────────────────────────────
@@ -3053,14 +3082,15 @@ def phase_sharded_lbm(card, results) -> dict:
     return launches, worst
 
 
-def phase_sharded_polar(card, dev, results, gpar, sweep, newton) -> dict:
+def phase_sharded_polar(card, dev, results, gpar, sweep, newton, single,
+                        single_wall) -> dict:
     """Phase 27: the sharded polar of the golden points at 1 and 4 ranks,
     each point held jointly to one member of the reference's ensemble on as
     many devices (``held_to_polar``); every block's lanes at the
     reference's own final states (``held_from_states``); each rank's
-    launches against its walk solves; each rank's stage split; then the
-    single-process ``solve_polar`` of the same points. Returns {kernel:
-    {ranks: launches}}.
+    launches against its walk solves; each rank's stage split; beside them
+    ``single``, phase 17's single-process ``solve_polar`` of the same
+    points, and its wall. Returns {kernel: {ranks: launches}}.
 
     With 9 members a point's joint hold is a draw: the reference's own
     members often lie off all their others. So a point that no member
@@ -3117,13 +3147,10 @@ def phase_sharded_polar(card, dev, results, gpar, sweep, newton) -> dict:
             held_from_states(newton, op, block, g["re"], dev,
                              f"the sharded polar's block {b} of {n}")
     require(not fails, f"sharded polar: {fails}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    single = sweep.solve_polar(coords, g["alphas"], g["re"], device=dev)
-    wall = time.perf_counter() - t0
     log(f"[sharded polar] single-process solve_polar of the same "
         f"{len(g['alphas'])} points (a bucket of "
-        f"{sweep._bucket_size(len(g['alphas']))} lanes): {wall:.3f} s wall, "
+        f"{sweep._bucket_size(len(g['alphas']))} lanes; phase 17's): "
+        f"{single_wall:.3f} s wall, "
         f"modes {single.mode.tolist()}; sharded over 1 rank "
         f"{results[1]['polar_wall']:.3f} s, over 4 ranks sharing the card "
         f"{results[4]['polar_wall']:.3f} s ({card})")
@@ -3164,6 +3191,205 @@ def phase_graft_entry(card, gpar, graft_entry):
     log(f"[graft entry] dryrun_multichip(4, backend='gloo'): "
         f"{time.perf_counter() - t0:.3f} s ({card})")
     return {k: counts[k] for k in MARCH_KERNELS}
+
+
+# ── the models, the headline bench and the heatmap (phases 29-31) ─────────
+
+# (mu_x, mu_y, alpha): tests/test_inviscid.py's exact Joukowski cases.
+JOUKOWSKI_CASES = [(-0.08, 0.0, 0.0), (-0.08, 0.0, 5.0),
+                   (-0.08, 0.04, 4.0), (-0.12, 0.06, 8.0)]
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# Phase 30's traced call, run by ``python -c TRACE_CHILD LOG_DIR`` from the
+# checkout's root.
+TRACE_CHILD = """
+import sys
+import torch
+from airfoil_tpu_torch.config import LBMConfig
+from airfoil_tpu_torch.lbm import core, kernel, masks
+from airfoil_tpu_torch.models import naca4
+from airfoil_tpu_torch.utils import profiling
+
+cfg = LBMConfig(nx=640, ny=384)
+dev = torch.device("cuda")
+solid = torch.tensor(masks.rasterize_airfoil(naca4(2, 4, 12, 60), 6.0, cfg),
+                     device=dev)
+word = kernel.cell_word(solid)
+f = core.equilibrium_init(cfg.ny, cfg.nx, cfg.u0, dev)
+kernel.lbm_steps(f, solid, cfg.u0, cfg.tau, steps=128, word=word)
+torch.cuda.synchronize()
+with profiling.profile_trace(log_dir=sys.argv[1]):
+    kernel.lbm_steps(f, solid, cfg.u0, cfg.tau, steps=128, word=word)
+    torch.cuda.synchronize()
+"""
+
+
+def phase_models(dev, card, models, paneling, inviscid):
+    """Phase 29: the exact Joukowski cases on the card, 160 panels from the
+    card's own ``repanel`` of the port's ``joukowski``: CL within 1.5 % of
+    the closed form (|CL| < 5e-3 at zero lift), Cp rms < 0.035 for x <
+    0.98, and CL and Cm within 1e-4 relative + 1e-5 of the port's CPU solve
+    of the same nodes (at the cusp a 1-ulp move of a node moves CL by up to
+    2.8e-4, so the CPU solve takes the card's nodes)."""
+    for mx, my, alpha in JOUKOWSKI_CASES:
+        xp, yp = paneling.repanel(models.joukowski(mx, my, 401), N_PANELS,
+                                  device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op = inviscid.build_operator(paneling.panel_geometry(xp, yp))
+        sol = inviscid.solve_inviscid(op, alpha)
+        cl = float(sol.cl)
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = inviscid.solve_inviscid(inviscid.build_operator(
+            paneling.panel_geometry(xp.cpu(), yp.cpu())), alpha)
+        ex = models.joukowski_exact(mx, my, alpha, n=2001)
+        if abs(ex["cl"]) < 1e-6:
+            exact_ok, cl_err = abs(cl) < 5e-3, abs(cl)
+        else:
+            cl_err = abs(cl / ex["cl"] - 1.0)
+            exact_ok = cl_err < 0.015
+        xm, ym = op.pan.xm.cpu().numpy(), op.pan.ym.cpu().numpy()
+        d = np.hypot(ex["x"][None] - xm[:, None], ex["y"][None] - ym[:, None])
+        err = sol.cp.cpu().numpy() - ex["cp"][d.argmin(1)]
+        rms = float(np.sqrt(np.mean(err[xm < 0.98] ** 2)))
+        diffs = {f: (float(getattr(sol, f)), float(getattr(cpu, f)))
+                 for f in ("cl", "cm")}
+        cpu_ok = all(abs(a - b) <= 1e-4 * abs(b) + 1e-5
+                     for a, b in diffs.values())
+        ok = exact_ok and rms < 0.035 and cpu_ok
+        log(f"[models] Joukowski mu ({mx:g}, {my:g}) alpha {alpha:g}: CL "
+            f"{cl:.6f} (exact {ex['cl']:.6f}, "
+            f"{'abs' if abs(ex['cl']) < 1e-6 else 'rel'} error {cl_err:.3e}),"
+            f" Cp rms {rms:.4f} for x < 0.98; CPU solve of the same nodes: "
+            + ", ".join(f"{f} {b:.6f} (diff {abs(a - b):.2e})"
+                        for f, (a, b) in diffs.items())
+            + f"; operator + solve {ms:.1f} ms on the card "
+            f"{'ok' if ok else 'FAIL'} ({card})")
+        require(ok, f"Joukowski ({mx}, {my}, {alpha}): CL error {cl_err}, "
+                    f"Cp rms {rms}, card vs CPU {diffs}")
+
+
+def phase_headline(dev, card, headline, profiling, kernel, core, masks,
+                   cfg_cls, polar_res, polar_wall, polar_launches, work):
+    """Phase 30: the headline bench's two records on the card. Line 2 from
+    ``bench_lbm`` at its three grids, each run through the kernel that
+    holds the grid (``lbm_steps`` at 640x384 and 384x192,
+    ``lbm_steps_tiled`` at 2048x1024) with warm-up + n_calls launches of it,
+    none of the other and one ``cell_word``; line 1 from phase 17's
+    ``solve_polar`` result and wall, no new solve, its mode counts those of
+    phase 17's modes. Then ``stage_timer`` around one 128-step call at
+    640x384 must read at least that call's CUDA-event time, and a
+    ``profile_trace`` around one call (in a child process) must write a
+    trace that names the resident LBM kernel. Returns {kernel: launches in line 2's runs}, the
+    counts set to 0 just before them and read just after."""
+    zero_launch_counts()
+    runs = headline.bench_lbm(device=dev)
+    counts = launch_counts()
+    launches = dict.fromkeys(LBM_KERNELS, 0)
+    for name, kw in headline.LBM_GRIDS:
+        r = runs[name]
+        used = "lbm_steps_tiled" if name == "tiled" else "lbm_steps"
+        other = "lbm_steps" if name == "tiled" else "lbm_steps_tiled"
+        want = {used: 1 + kw["n_calls"], other: 0, "cell_word": 1}
+        require(r["finite"] and r["kernel"] and r["platform"] == "gpu"
+                and r["tiled"] == (name == "tiled")
+                and r["launches"] == want and r["launches"][used] > 0,
+                f"headline LBM {name}: {r}, want launches {want}")
+        for k, n in r["launches"].items():
+            launches[k] += n
+    require(counts == dict(launches, bl_march=0, bl_march_wake=0),
+            f"headline LBM launches {counts}, its runs' {launches}")
+    line2 = headline.lbm_record(runs, dev, card)
+    log(f"[headline] line 2: {json.dumps(line2)}")
+    modes = np.asarray(polar_res.mode)
+    polar = dict(headline.polar_stats(polar_res, polar_wall), reps=1,
+                 warmup_seconds=None, launches=polar_launches)
+    line1 = headline.polar_record(polar, dev, card)
+    want_modes = {"viscous": int(np.sum(modes == 0)),
+                  "viscous_smoothed": int(np.sum(modes == 1)),
+                  "inviscid": int(np.sum(modes == 2))}
+    require(line1["extra"]["mode_counts"] == want_modes
+            and line1["extra"]["n_points"] == len(modes)
+            and line1["extra"]["platform"] == "gpu"
+            and all(n > 0 for n in polar_launches.values()),
+            f"headline line 1 from phase 17: {line1}, modes {modes}")
+    log(f"[headline] line 1 from phase 17's polar (no new solve): "
+        f"{json.dumps(line1)}")
+
+    cfg = cfg_cls(nx=640, ny=384)
+    solid = torch.tensor(masks.rasterize_airfoil(naca4_coords(), 6.0, cfg),
+                         device=dev)
+    word = kernel.cell_word(solid)
+    f = core.equilibrium_init(cfg.ny, cfg.nx, cfg.u0, dev)
+
+    def call():
+        return kernel.lbm_steps(f, solid, cfg.u0, cfg.tau, steps=128,
+                                word=word)
+
+    call()
+    timings = profiling.Timings()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profiling.stage_timer(timings, "lbm_steps"):
+        start.record()
+        call()
+        end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    stage_ms = timings.stages["lbm_steps"] * 1e3
+    log(f"[headline] stage_timer around one 128-step lbm_steps call at "
+        f"640x384: {stage_ms:.4f} ms; CUDA events {event_ms:.4f} ms "
+        f"{'ok' if stage_ms >= event_ms else 'FAIL'} ({card})")
+    require(stage_ms >= event_ms,
+            f"stage_timer {stage_ms} ms < CUDA events {event_ms} ms")
+    # Late in this long process the profiler has dropped the kernel's record
+    # from three padded windows of one call, which a young process traces:
+    # the trace is taken in a child process.
+    log_dir = os.path.join(work, "trace")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", TRACE_CHILD, log_dir],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+    require(child.returncode == 0, f"profile_trace child: {child.stderr}")
+    paths = sorted(os.listdir(log_dir))
+    require(len(paths) == 1 and paths[0].endswith(".json"),
+            f"profile_trace wrote {paths}")
+    with open(os.path.join(log_dir, paths[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {str(e.get("name", "")) for e in events}
+    named = any("lbm_resident_kernel" in n for n in names)
+    log(f"[headline] profile_trace around one 128-step call at 640x384 (a "
+        f"child process, {time.perf_counter() - t0:.1f} s): {paths[0]}, "
+        f"{len(events)} events, kernels "
+        f"{sorted(kernel_name(n) for n in names if '_kernel' in n)} "
+        f"{'ok' if named else 'FAIL'} ({card})")
+    require(named, "profile_trace's trace does not name the LBM kernel")
+    return launches
+
+
+def phase_flowviz(card, field):
+    """Phase 31: ``render_heatmap_png`` of phase 25's card field must
+    decode as a PNG. Without matplotlib (an optional package) the phase
+    says so and checks nothing."""
+    try:
+        import matplotlib.image as mpimg
+    except ImportError:
+        log("[flowviz] skipped: no matplotlib")
+        return
+    from airfoil_tpu_torch.ui import flowviz
+    t0 = time.perf_counter()
+    b64 = flowviz.render_heatmap_png(field)
+    wall = time.perf_counter() - t0
+    png = base64.b64decode(b64)
+    require(png[:8] == PNG_MAGIC, "the heatmap is not a PNG")
+    pixels = mpimg.imread(io.BytesIO(png), format="png")
+    colours = len(np.unique(pixels.reshape(-1, pixels.shape[-1]), axis=0))
+    require(pixels.ndim == 3 and min(pixels.shape[:2]) > 100
+            and colours > 50,
+            f"heatmap of {pixels.shape} with {colours} colours")
+    log(f"[flowviz] render_heatmap_png of phase 25's {len(field.x)} x "
+        f"{len(field.x)} card field: {len(png)} B PNG, "
+        f"{pixels.shape[1]} x {pixels.shape[0]} pixels, {colours} colours, "
+        f"{wall:.3f} s ({card})")
 
 
 def main() -> int:
@@ -3258,8 +3484,9 @@ def run(run_log_dir: str, work: str) -> int:
     # The polar and batch path: the sweep, the batch, the served routes.
     from airfoil_tpu_torch.polar import sweep
     pgold = load_goldens(POLAR_GOLDENS)
-    polar_res, polar_launches, polar_lanes, polar_abs, at_lanes = \
-        phase_polar(dev, card, pgold, sweep, newton, march_kernel, march)
+    polar_res, polar_wall, polar_launches, polar_lanes, polar_abs, \
+        at_lanes = phase_polar(dev, card, pgold, sweep, newton, march_kernel,
+                               march)
     batch_res = phase_batch(dev, pgold, polar, newton, march_kernel)
     walls.update(phase_served(pgold, make_server, parse_upload, stats,
                               polar_res, batch_res))
@@ -3306,7 +3533,7 @@ def run(run_log_dir: str, work: str) -> int:
         dev, card, pb, march_kernel, march, files, p_side, p_wake)
     off += phase_probe(dev, card, bgold, paneling_probe, naca4,
                        parse_dat_file, files)
-    phase_flow_field(dev, card, flowfield, naca4)
+    field = phase_flow_field(dev, card, flowfield, naca4)
     log(f"[parser bench] the parser-bench, tripped, speed, probe and flow "
         f"field phases took {time.perf_counter() - t_bench:.1f} s")
     require(len(off) <= s_rate,
@@ -3332,6 +3559,12 @@ def run(run_log_dir: str, work: str) -> int:
     from airfoil_tpu_torch.parallel import launch as par_launch
     gpar = load_goldens(PARALLEL_GOLDENS)
     gp = gpar["polar"]
+    # Phase 27 sets phase 17's polar beside the sharded ones: the same
+    # geometry, points, Re and panels.
+    same = ("naca", "alphas", "re", "n_panels")
+    require({k: gp[k] for k in same} == {k: pgold["polar"][k] for k in same},
+            f"the sharded polar's points {[gp[k] for k in same]} are not "
+            f"phase 17's {[pgold['polar'][k] for k in same]}")
     polar_args = (np.asarray(naca4_coords(*gp["naca"]), np.float32),
                   gp["alphas"], gp["re"])
     t_par = time.perf_counter()
@@ -3344,10 +3577,26 @@ def run(run_log_dir: str, work: str) -> int:
             f"polar in {time.perf_counter() - t0:.1f} s, start-up included")
     sharded_launches, sharded_abs = phase_sharded_lbm(card, results)
     sharded_launches.update(phase_sharded_polar(card, dev, results, gpar,
-                                                sweep, newton))
+                                                sweep, newton, polar_res,
+                                                polar_wall))
     entry_launches = phase_graft_entry(card, gpar, graft_entry)
     log(f"[sharded] the sharded LBM, sharded polar and graft entry phases "
         f"took {time.perf_counter() - t_par:.1f} s")
+
+    # The exact Joukowski cases, the headline bench's records on the card,
+    # the profiling utilities and the heatmap.
+    from airfoil_tpu_torch import models
+    from airfoil_tpu_torch.bench import headline
+    from airfoil_tpu_torch.utils import profiling
+    t_new = time.perf_counter()
+    phase_models(dev, card, models, paneling, inviscid)
+    headline_launches = phase_headline(
+        dev, card, headline, profiling, kernel, core, masks, LBMConfig,
+        polar_res, polar_wall, polar_launches, work)
+    headline_launches.update(polar_launches)
+    phase_flowviz(card, field)
+    log(f"[headline] the models, headline and flowviz phases took "
+        f"{time.perf_counter() - t_new:.1f} s")
     for name in KERNELS:
         keys = newton_keys.setdefault(name, {})
         keys.update({f"sharded_launches_{n}_rank{'s' if n > 1 else ''}":
@@ -3356,6 +3605,7 @@ def run(run_log_dir: str, work: str) -> int:
             keys["sharded_max_abs_err"] = sharded_abs
         if name in entry_launches:
             keys["entry_launches"] = entry_launches[name]
+        keys["headline_launches"] = headline_launches[name]
 
     refused = [m for m in sys.modules
                if m.partition(".")[0] in ("jax", "airfoil_tpu")]

@@ -21,19 +21,27 @@ import torch
 from airfoil_tpu.inviscid import build_operator as jbuild
 from airfoil_tpu.inviscid import solve_inviscid as jsolve
 from airfoil_tpu.inviscid import velocity_at_points as jvel
-from airfoil_tpu.models import joukowski, naca4
+from airfoil_tpu.models import joukowski as ref_joukowski
+from airfoil_tpu.models import naca4 as ref_naca4
 from airfoil_tpu.paneling import panel_geometry as jgeom
 from airfoil_tpu.paneling import repanel as jrepanel
 from airfoil_tpu_torch.inviscid import (build_operator, operator_from_numpy,
                                         solve_inviscid, velocity_at_points)
+from airfoil_tpu_torch.models import joukowski, naca4
 from airfoil_tpu_torch.paneling import panel_geometry, repanel
 from torch_parity import as_numpy, compare, to_torch
 
 CPU = "cpu"
-SECTIONS = {"naca0012": lambda: naca4(0, 0, 12, 100),
-            "naca2412": lambda: naca4(2, 4, 12, 100),
-            "naca4412": lambda: naca4(4, 4, 12, 100),
-            "joukowski": lambda: joukowski()}
+# The reference's shapes (nodes from its repanel go to both solvers) and
+# the port's own copies, for what the port computes alone.
+SECTIONS = {"naca0012": lambda: ref_naca4(0, 0, 12, 100),
+            "naca2412": lambda: ref_naca4(2, 4, 12, 100),
+            "naca4412": lambda: ref_naca4(4, 4, 12, 100),
+            "joukowski": lambda: ref_joukowski()}
+PORT_SECTIONS = {"naca0012": lambda: naca4(0, 0, 12, 100),
+                 "naca2412": lambda: naca4(2, 4, 12, 100),
+                 "naca4412": lambda: naca4(4, 4, 12, 100),
+                 "joukowski": lambda: joukowski()}
 ASSEMBLED = ["a_full", "bn", "at_full", "bt", "at_a", "at_b", "rhs_scale"]
 SOLVED = ["due_dsigma", "dgamma_dsigma"]
 
@@ -123,7 +131,7 @@ def test_solve_inviscid_with_sigma(section):
 ])
 def test_anchors(section, alpha, cl, cm):
     """The verify-skill anchors, on the port alone, from its own repanel."""
-    op = build_operator(panel_geometry(*repanel(SECTIONS[section](), 160,
+    op = build_operator(panel_geometry(*repanel(PORT_SECTIONS[section](), 160,
                                                 device=CPU)))
     sol = solve_inviscid(op, alpha)
     assert abs(float(sol.cl) - cl) < 0.01

@@ -7,9 +7,9 @@ Port of ``airfoil_tpu/api/handlers.py``. That module imports JAX at import
 time, so its handlers are copied here with the same validation, rounding
 and JSON keys; ``/health`` reports the torch device instead of a JAX
 backend, and the solving handlers take the device to solve on.
-``start_warmup`` is not ported: it warms the reference's XLA compiles,
-and the port compiles nothing ahead (its CUDA libraries build at first
-use). Handlers map parsed inputs to ``(status_code, payload_dict)``.
+``start_warmup`` builds the kernel libraries and captures the solver's
+CUDA graphs in a background thread at server start. Handlers map parsed
+inputs to ``(status_code, payload_dict)``.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "ApiError", "parse_upload", "validate_envelope", "handle_root",
     "handle_health", "handle_upload", "handle_polar", "handle_batch",
-    "handle_stats", "LBMSessions",
+    "handle_stats", "LBMSessions", "start_warmup",
 ]
 
 
@@ -51,6 +51,50 @@ class ApiError(Exception):
         super().__init__(detail)
         self.status_code = status_code
         self.detail = detail
+
+
+def start_warmup(device=None) -> threading.Thread:
+    """Build the kernels and capture the solver's graphs at the served
+    shapes in a daemon thread named ``solver-warmup``, so that the first
+    requests do not pay for them (the reference's warm-up of its XLA
+    compiles): every kernel library (``enable_persistent_compile_cache``),
+    the 32-point polar bucket's graphs (``warm_polar_kernels``), then an
+    alpha-14 analysis of NACA 2412 at Re 1e6 (the Newton, continuation and
+    rescue keys of ``/upload_airfoil/``). Each stage's seconds are logged,
+    and a failure is logged, not raised. A request that arrives meanwhile
+    is served: it waits only for a capture of its own key, each capture
+    leaves other threads' work alone (``viscous.graphs``). On ``device``
+    (see ``resolve_device``). Returns the thread."""
+
+    def _warm():
+        try:
+            from airfoil_tpu_torch.models import naca4
+            from airfoil_tpu_torch.polar.analyze import analyze_airfoil
+            from airfoil_tpu_torch.polar.sweep import warm_polar_kernels
+            from airfoil_tpu_torch.utils.compile_cache import (
+                enable_persistent_compile_cache,
+            )
+
+            t0 = time.perf_counter()
+            enable_persistent_compile_cache()
+            logger.info("kernel library warmup done in %.1fs",
+                        time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            warm_polar_kernels(p=32, device=device)
+            logger.info("polar warmup done in %.1fs",
+                        time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            analyze_airfoil(naca4(2, 4, 12, 60), reynolds=1e6, alpha=14.0,
+                            device=device)
+            logger.info("analysis warmup done in %.1fs",
+                        time.perf_counter() - t0)
+        except Exception:            # noqa: BLE001 - warm-up is best-effort
+            logger.exception("solver warmup failed")
+
+    thread = threading.Thread(target=_warm, name="solver-warmup",
+                              daemon=True)
+    thread.start()
+    return thread
 
 
 def parse_upload(filename: str, content: bytes):

@@ -6,10 +6,10 @@ Port of ``airfoil_tpu/api/minihttp.py`` on the standard library's
 multipart/form-data parser. ``/upload_airfoil/``, ``/polar/`` and
 ``/batch/`` (N file parts named ``files``) solve on the server's device
 under the ``solve`` rate limit and the solver lock; ``GET /stats`` reads
-the analysis counter. It compiles nothing at start-up: the reference's
-``start_warmup`` warms XLA compiles, which the port does not have (its
-CUDA libraries build at first use). The page at ``/app`` is the port's
-byte copy of the reference's ``ui/static_app.html``.
+the analysis counter. ``serve`` starts ``handlers.start_warmup`` (the
+kernel libraries and the solver's CUDA graphs, in a background thread),
+as the reference's does. The page at ``/app`` is the port's byte copy of
+the reference's ``ui/static_app.html``.
 
 Run: ``python -m airfoil_tpu_torch.api.minihttp`` (port from ``$PORT``,
 device from ``$AIRFOIL_TPU_TORCH_DEVICE``, default ``cuda``).
@@ -288,6 +288,7 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
 def serve(host: str = "0.0.0.0", port: int | None = None, device=None):
     device = resolve_device(device)
     httpd = make_server(host, port, device=device)
+    handlers.start_warmup(device)
     logger.info("airfoil_tpu_torch mini server on %s:%d (device %s)",
                 *httpd.server_address, device)
     try:

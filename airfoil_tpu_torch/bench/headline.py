@@ -11,9 +11,10 @@ cannot lose it. Errors are not caught: a failing stage ends the run with a
 non-zero exit and a traceback, after whatever lines were already printed.
 
 The polar is NACA 2412 (100 points a side), alpha -10..20 step 1, Re 1e6,
-through the served ``polar.sweep.solve_polar``: one warm-up call (which
-also builds the march kernels at first use), then ``reps`` timed calls with
-alpha perturbed by 0.001 a repetition. The LBM throughput is
+through the served ``polar.sweep.solve_polar``: ``warm_polar_kernels`` of
+the 32-point bucket (the march kernel's build and the LM graphs'
+captures), one warm-up call, then ``reps`` timed calls with alpha
+perturbed by 0.001 a repetition, as ``bench.py`` does. The LBM throughput is
 ``lbm.bench.bench_mlups`` at 640x384 (the resident ``lbm_steps``), the
 served 384x192 and 2048x1024 (past the resident kernel's capacity:
 ``lbm_steps_tiled``); each grid records which kernel ran and the launches
@@ -49,6 +50,7 @@ from airfoil_tpu_torch.lbm import kernel as lbm_kernel
 from airfoil_tpu_torch.lbm.bench import bench_mlups
 from airfoil_tpu_torch.models import naca4
 from airfoil_tpu_torch.polar import sweep
+from airfoil_tpu_torch.viscous import graphs
 from airfoil_tpu_torch.viscous import kernel as march_kernel
 
 __all__ = ["bench_polar", "bench_lbm", "polar_record", "lbm_record", "main"]
@@ -104,11 +106,18 @@ def _march_launches() -> dict:
             "bl_march_wake": march_kernel.wake_launches}
 
 
+def _graph_counts() -> dict:
+    return {"captures": sum(graphs.captures.values()),
+            "replays": sum(graphs.replays.values())}
+
+
 def bench_polar(reduced: bool = False, reps: int | None = None,
                 device=None) -> dict:
     """The polar's summary (``polar_stats``) averaged over ``reps`` timed
     calls (default 3, 1 when ``reduced``), plus ``reps``, the warm-up's
-    seconds and the march kernels' launches in the timed calls."""
+    seconds (``warm_polar_kernels``, then one polar), and the march
+    kernels' launches and the LM graphs' captures and replays in the timed
+    calls."""
     dev = resolve_device(device)
     coords = np.asarray(naca4(2, 4, 12, 100), np.float32)
     alphas = REDUCED_ALPHAS if reduced else FULL_ALPHAS
@@ -116,20 +125,25 @@ def bench_polar(reduced: bool = False, reps: int | None = None,
         reps = 1 if reduced else FULL_REPS
     if reps < 1:
         raise ValueError(f"reps must be at least 1, got {reps}")
-    # solve_polar returns host arrays: each call has finished on return.
     t0 = time.perf_counter()
+    sweep.warm_polar_kernels(p=len(alphas) if reduced else 32, device=dev)
+    t1 = time.perf_counter()
+    # solve_polar returns host arrays: each call has finished on return.
     sweep.solve_polar(coords, alphas, REYNOLDS, device=dev)
-    warmup = time.perf_counter() - t0
-    before = _march_launches()
+    warmup = {"warm_polar_kernels": t1 - t0,
+              "polar": time.perf_counter() - t1}
+    before = {**_march_launches(), **_graph_counts()}
     t0 = time.perf_counter()
     for rep in range(reps):
         # Perturb the inputs so that no layer can serve a cached answer.
         out = sweep.solve_polar(coords, alphas + 0.001 * rep, REYNOLDS,
                                 device=dev)
     dt = (time.perf_counter() - t0) / reps
-    after = _march_launches()
+    after = {**_march_launches(), **_graph_counts()}
+    delta = {k: after[k] - before[k] for k in after}
     return dict(polar_stats(out, dt), reps=reps, warmup_seconds=warmup,
-                launches={k: after[k] - before[k] for k in after})
+                launches={k: delta[k] for k in _march_launches()},
+                lm_graphs={k: delta[k] for k in _graph_counts()})
 
 
 def _parity_extra() -> dict:
@@ -159,6 +173,7 @@ def polar_record(polar: dict, dev: torch.device, card: str | None) -> dict:
                   "reps": polar["reps"],
                   "warmup_seconds": polar["warmup_seconds"],
                   "launches": polar["launches"],
+                  "lm_graphs": polar["lm_graphs"],
                   "parity": _parity_extra()},
     }
 

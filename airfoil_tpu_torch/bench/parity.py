@@ -233,6 +233,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--out", default="parity_report.json")
     args = ap.parse_args()
+    # Build the kernel libraries before the first polar, as the reference
+    # turns on its compile cache.
+    from airfoil_tpu_torch.utils.compile_cache import (
+        enable_persistent_compile_cache,
+    )
+    enable_persistent_compile_cache()
     report = run_parity()
     report["bench_polar"] = bench_polar()
     print(json.dumps(report["bench_polar"]), file=sys.stderr, flush=True)

@@ -20,8 +20,9 @@ A polar is a hybrid parallel/sequential pipeline:
 
 The audits, the carry and the selection are the reference's, decision for
 decision; see its module for why each band and gate is what it is.
-``warm_polar_kernels`` is not ported: it warms XLA compiles, and the port
-compiles nothing ahead (its CUDA library builds at first use).
+``warm_polar_kernels`` builds the march kernel and captures the LM
+iteration's CUDA graphs of a point-count bucket before the first request,
+where the reference compiles its jitted pipeline.
 """
 
 from __future__ import annotations
@@ -34,14 +35,15 @@ import torch
 from airfoil_tpu_torch import numerics as nm
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.inviscid import build_operator, solve_inviscid
+from airfoil_tpu_torch.models import naca4
 from airfoil_tpu_torch.paneling import panel_geometry, repanel, smooth_geometry
 from airfoil_tpu_torch.viscous.newton import (
     solve_polar_point_cont,
     solve_polar_points,
 )
 
-__all__ = ["PolarResult", "solve_polar", "MODE_VISCOUS",
-           "MODE_VISCOUS_SMOOTHED", "MODE_INVISCID"]
+__all__ = ["PolarResult", "solve_polar", "warm_polar_kernels",
+           "MODE_VISCOUS", "MODE_VISCOUS_SMOOTHED", "MODE_INVISCID"]
 
 MODE_VISCOUS = 0
 MODE_VISCOUS_SMOOTHED = 1
@@ -420,6 +422,39 @@ def _pad_coords(coords: torch.Tensor) -> torch.Tensor:
         return coords
     tail = coords[-1:].expand(target - m, coords.shape[1])
     return torch.cat([coords, tail])
+
+
+def warm_polar_kernels(p: int = 32, n_coords: int = 192,
+                       n_panels: int = 160, rescue: bool = True,
+                       device=None) -> None:
+    """Build the march kernel and capture the LM iteration's graph of
+    every shape key a polar of ``p`` points solves at (``viscous.graphs``),
+    so that the first real ``solve_polar`` in that bucket captures nothing.
+
+    Dummy inputs at the served shapes, as the reference's: NACA 2412 with
+    ``n_coords`` points, alphas over -10..20 at Re 1e6, ``p`` rounded up
+    to its bucket (``solve_polar`` pads to it); the per-point pass (one
+    lane a point), one continuation solve from the pass's first lane (the
+    walk's one-lane key) and, with ``rescue``, the smoothed rescue
+    (min(8, bucket) lanes). One after another: the reference's threads
+    overlap XLA compiles, which the port does not have. On ``device``
+    (see ``resolve_device``); on the CPU the same solves run eagerly."""
+    dev = resolve_device(device)
+    coords = _pad_coords(torch.as_tensor(
+        np.asarray(naca4(2, 4, 12, (n_coords - 1) // 2), np.float32),
+        device=dev))
+    b = _bucket_size(p)
+    alphas = torch.as_tensor(np.linspace(-10.0, 20.0, b, dtype=np.float32),
+                             device=dev)
+    res = torch.full((b,), 1e6, dtype=DTYPE, device=dev)
+    op, _xp, _yp = _op_kernel(coords, n_panels)
+    _m1, (_nok1, st1) = _points_kernel(op, alphas, res)
+    solve_polar_point_cont(op, alphas[0], res[0], *(x[0] for x in st1),
+                           n_stations=_N_STATIONS)
+    if rescue:
+        r = min(8, b)
+        _rescue_kernel(_op_kernel_smoothed(coords, n_panels), alphas[:r],
+                       res[:r])
 
 
 def solve_polar(

@@ -41,6 +41,12 @@ How it runs on the card:
   solves, and the candidate chosen by ``torch.where``/``argmax`` on the
   device. The only host reads of a solve are the round loop's lane mask,
   once a round, and what the caller reads of the result.
+- A round's LM iterations are ``_lm_body``, a plain function of a flat
+  list of tensors (the state, the damping and ``_System.lm_tensors``): on
+  the card ``viscous.graphs`` captures it once a shape key as a CUDA graph
+  and replays it ``newton_iters`` times a round (the counterpart of the
+  reference's ``jax.jit`` programs); on the CPU the round calls it
+  eagerly. The re-projection and the round's residual stay eager.
 - The boundary-layer marches (the warm start's side marches of 2P lanes
   at the solve's station count, the verdict's, and the fallback's wake
   march of P lanes) go through ``viscous.kernel``: the CUDA march kernel
@@ -50,6 +56,7 @@ How it runs on the card:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -64,7 +71,7 @@ from airfoil_tpu_torch.inviscid.panel_solver import (
 from airfoil_tpu_torch.numerics import clip, maximum, minimum
 from airfoil_tpu_torch.paneling import Paneling
 from airfoil_tpu_torch.viscous import closures as cl
-from airfoil_tpu_torch.viscous import kernel
+from airfoil_tpu_torch.viscous import graphs, kernel
 from airfoil_tpu_torch.viscous.coupled import (
     SideBL,
     ViscousResult,
@@ -538,12 +545,16 @@ class _System:
     back."""
 
     def __init__(self, op, wop, grid, vt0, nu, m_s, n_w, n_crit,
-                 x_trip_u, x_trip_l, zz_lin):
+                 x_trip_u, x_trip_l, zz_lin=None, l_mat=None):
         self.op, self.wop, self.grid, self.vt0, self.nu = op, wop, grid, vt0, nu
         self.m_s, self.n_w = m_s, n_w
         self.n_crit, self.x_trip_u, self.x_trip_l = n_crit, x_trip_u, x_trip_l
         self.lanes = tuple(vt0.shape[:-1])
+        self.shared = isinstance(op, InviscidOperator)
         self.plan = _plan_on(m_s, n_w, vt0.device)
+        if l_mat is not None:
+            self.l_mat = l_mat
+            return
         # The interaction operator's Jacobian at the state the LM starts
         # from (for a continuation, the donor's), exact modulo the rarely
         # active derivative clip: one evaluation on a Dual over the
@@ -651,10 +662,39 @@ class _System:
                    1e-7, 1e6)
         return zz, lam
 
+    def lm_tensors(self) -> "_LMTensors":
+        """Every tensor ``lm_step`` reads but the plan's constants, each
+        dense (a graph's static copy of it then has its layout)."""
+        op, wop, g = self.op, self.wop, self.grid
+        return _LMTensors(*(a.contiguous() for a in (
+            op.pan.s, op.due_dsigma, wop.wpan.s, wop.xi, wop.dvt_dsigw,
+            wop.uw0, wop.wb, wop.ww, g.xi_u, g.xi_l, g.xi_w, g.s_q_u,
+            g.s_q_l, g.s0, g.te_gap, g.xt_u, g.xt_l, self.vt0, self.nu,
+            self.n_crit, self.x_trip_u, self.x_trip_l, self.l_mat)))
+
+    @classmethod
+    def of_lm_tensors(cls, t: "_LMTensors", m_s: int, n_w: int) -> "_System":
+        """The system that holds ``t`` and nothing else: every other field
+        of its operators and grid is None, so ``lm_step`` on it can read no
+        tensor that is not in ``t``."""
+        op = _LaneOps(_s_only(t.pan_s), t.due_dsigma)
+        wop = WakeOperator(_s_only(t.wpan_s), t.w_xi, t.dvt_dsigw, t.uw0,
+                           t.wb, t.ww)
+        grid = _Grid(xi_u=t.xi_u, xi_l=t.xi_l, xi_w=t.xi_w, x_u=None,
+                     y_u=None, x_l=None, y_l=None, s_q_u=t.s_q_u,
+                     s_q_l=t.s_q_l, s0=t.s0, te_gap=t.te_gap, xt_u=t.xt_u,
+                     xt_l=t.xt_l)
+        return cls(op, wop, grid, t.vt0, t.nu, m_s, n_w, t.n_crit,
+                   t.x_trip_u, t.x_trip_l, l_mat=t.l_mat)
+
     def run_lm(self, zz, lam, iters: int):
-        for _ in range(iters):
-            zz, lam = self.lm_step(zz, lam)
-        return zz, lam
+        """``iters`` LM iterations from (zz, lam): on the card by replaying
+        this system's shape key's graph of one iteration, on the CPU by
+        calling the same body eagerly (``viscous.graphs.run_lm``)."""
+        return graphs.run_lm(
+            graphs.lm_key(self), functools.partial(_lm_body, self.m_s,
+                                                   self.n_w),
+            [zz, lam, *self.lm_tensors()], iters)
 
     def reproject_n(self, zz):
         """Exact re-integration of the amplification ODE over the iterate's
@@ -687,6 +727,50 @@ class _System:
         zw = zw.clone()
         zw[..., 3] = 0.0
         return _pack(z2[0], z2[1], zw)
+
+
+class _LMTensors(NamedTuple):
+    """What one LM iteration reads besides the plan's constants (which are
+    cached per shape and device and never freed): the flat inputs of its
+    CUDA graph after the state and the damping."""
+
+    pan_s: torch.Tensor         # the body's node arcs, (N+1,) or (P, N+1)
+    due_dsigma: torch.Tensor    # (N, N) shared or (P, N, N) one a lane
+    wpan_s: torch.Tensor        # the wake line's node arcs (P, Mw+1)
+    w_xi: torch.Tensor          # the wake operator's stations (P, Mw)
+    dvt_dsigw: torch.Tensor
+    uw0: torch.Tensor
+    wb: torch.Tensor
+    ww: torch.Tensor
+    xi_u: torch.Tensor          # the grid's fields but the station x, y
+    xi_l: torch.Tensor
+    xi_w: torch.Tensor
+    s_q_u: torch.Tensor
+    s_q_l: torch.Tensor
+    s0: torch.Tensor
+    te_gap: torch.Tensor
+    xt_u: torch.Tensor
+    xt_l: torch.Tensor
+    vt0: torch.Tensor
+    nu: torch.Tensor
+    n_crit: torch.Tensor
+    x_trip_u: torch.Tensor
+    x_trip_l: torch.Tensor
+    l_mat: torch.Tensor
+
+
+def _s_only(s: torch.Tensor) -> Paneling:
+    """A paneling that holds its node arcs alone: all that an LM iteration
+    reads of one."""
+    return Paneling(*(None,) * (len(Paneling._fields) - 1), s=s)
+
+
+def _lm_body(m_s: int, n_w: int, flat):
+    """One LM iteration as a plain function of the flat list ``[zz, lam,
+    *_LMTensors]``: (zz, lam) -> (zz, lam) of ``_System.lm_step``. What a
+    CUDA graph captures, and what the round runs eagerly on the CPU."""
+    zz, lam, *rest = flat
+    return _System.of_lm_tensors(_LMTensors(*rest), m_s, n_w).lm_step(zz, lam)
 
 
 def _warm_start(op, wop, grid, vt0, nu, n_crit, trip_u, trip_l, m_s, n_w,
@@ -956,8 +1040,10 @@ def _lm_rounds(system, zz_i, newton_iters: int, outer_rounds: int):
     settled (rms below the gate) or futile (a round made less than 8%
     relative progress) and keeps its carry frozen from then on; the loop
     ends when no lane is active. The lane mask is the one host read a
-    round. Returns the best state, its rms and the rounds each lane ran,
-    (P, n3), (P,) and (P,)."""
+    round. A round's iterations are ``system.run_lm``: on the card the
+    replays of its shape key's graph, the re-projection and the round's
+    residual eager around them. Returns the best state, its rms and the
+    rounds each lane ran, (P, n3), (P,) and (P,)."""
     p = zz_i.shape[0]
     zz, lam = zz_i, _lane_vals(1e-3, p, zz_i)
     best_zz = zz_i

@@ -11,7 +11,8 @@ fails (non-zero exit, no result line) if any phase fails:
    limit as nvidia-smi reports them;
 2. build   — builds the three CUDA libraries (``lbm_steps``,
    ``lbm_steps_tiled``, ``bl_march``) from ``airfoil_tpu_torch/csrc``
-   afresh, one nvcc each, in parallel, and logs ptxas's registers, stack
+   afresh, one nvcc each, in parallel (``utils/compile_cache.py``, the
+   server's warm-up's first stage), and logs ptxas's registers, stack
    frames and spills, the resident kernel's tiling and shared memory at
    the served grid and the tiled kernel's tile, shared memory and blocks
    per SM; every LBM and march kernel must have a 0-byte stack frame and
@@ -142,12 +143,31 @@ of the reference ensemble's members with the same ``converged``:
     polar to the JSON's rounding, ``POST /batch/`` with the two files (N
     parts named ``files``) equal to the library's batch, ``GET /stats``
     up by the three analyses served;
-20. newton speed — median wall of 5 default solves, the LM iterations and
-    host synchronisations of a solve, its device time and busy share; one
-    LM iteration's dispatched operations, device kernels and time, the
-    four batched Cholesky solves, ``_reproject_n``; the march kernels at
-    96 and 20 stations with their plain times and bounds; the analyze and
-    upload wall times.
+20. newton speed — median wall of 5 default solves, the LM iterations
+    (graph replays) and host synchronisations of a solve, its device time
+    and busy share; one eager LM iteration's dispatched operations, device
+    kernels and time, the four batched Cholesky solves, ``_reproject_n``;
+    the march kernels at 96 and 20 stations with their plain times and
+    bounds; the analyze and upload wall times;
+20a. graphs — the LM iteration's CUDA graphs (``viscous/graphs.py``; on
+    the card every solve above replays them): (a) at 1, 8 and 32 lanes,
+    each key (the operator shared by the lanes, and at 8 and 32 also
+    stacked one a lane) captured at NACA 2412 alpha 4 Re 1e6 and replayed
+    at NACA 0012 alpha 2 Re 3e5 and NACA 2412 alpha 8: ``_lm_rounds``
+    (4 iterations a round, 2 rounds) equal to the eager round on the same
+    inputs bit for bit, every round's state and damping, the best state,
+    its rms and the rounds; one capture a key, none at a replay; one LM
+    iteration's wall and device time graphed and eager at 1 and 32 lanes,
+    a default graphed solve; (b) from an empty cache,
+    ``warm_polar_kernels(p=32)`` captures 3 graphs (pass, walk, rescue),
+    after which the headline's 31-point polar and a 25-point one capture
+    none; (c) three threads solving one key (``solve_polar_point`` at
+    alpha 2, 4, 6) at once each get their answer alone bit for bit; (d)
+    ``POST /upload_airfoil/`` sent to a served port while
+    ``start_warmup`` runs (its thread ``solver-warmup`` alive when the
+    answer comes) is answered 200 and equal to the same upload after the
+    warm-up, whose three stages logged and none failed; each key's graph
+    pool.
 
 Then the parser-robustness benchmark (``bench/parser_benchmark.py``: the
 direct solve over chunks of 32 geometry lanes at Re 2e5, alpha 5), held to
@@ -262,8 +282,10 @@ the launches of every rank of the sharded LBM's runs (LBM kernels) or of
 the sharded polar's (march kernels); ``sharded_max_abs_err``: the sharded
 lattices' largest difference from the unsharded kernel's;
 ``entry_launches``: the graft entry's; ``headline_launches``: line 2's
-runs (LBM kernels) or the polar line 1 is built from (march kernels)), and
-the last line the result (JSON). JAX is never imported, nor anything of
+runs (LBM kernels) or the polar line 1 is built from (march kernels));
+beside the kernels, ``lm_graphs``: the LM graphs' captures and replays in
+the run, phase 20a's keys, pools, iteration and solve times), and the last
+line the result (JSON). JAX is never imported, nor anything of
 ``airfoil_tpu``.
 """
 
@@ -476,15 +498,14 @@ def ptxas_usage(log_text: str) -> dict:
 
 
 # ── phases ──────────────────────────────────────────────────────────────────
-def phase_build(cuda_build, kernel, march_kernel):
-    """The three libraries, one nvcc each, started together."""
+def phase_build(cuda_build, compile_cache, kernel):
+    """The three libraries, one nvcc each, started together
+    (``utils/compile_cache.py``, which raises here what
+    ``enable_persistent_compile_cache`` would only log)."""
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    loaders = {"lbm_steps": kernel.load, "lbm_steps_tiled": kernel.load_tiled,
-               "bl_march": march_kernel.load}
+    loaders = compile_cache._loaders()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(loaders)) as pool:
-        for fut in [pool.submit(fn) for fn in loaders.values()]:
-            fut.result()
+    compile_cache._build_libraries()
     log(f"[build] {', '.join(loaders)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in loaders:
@@ -2048,7 +2069,7 @@ def _lane_counts(calls) -> dict:
     return out
 
 
-def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
+def phase_polar(dev, card, pgold, sweep, newton, graphs, mk, plain):
     """The main path of this slice: ``solve_polar`` of the golden polar on
     the card, every point held to the reference's ensemble; the sweep's
     marches (launches, lanes) and walk solves counted, the per-point pass's
@@ -2056,12 +2077,13 @@ def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
     at the polar path's 64 and 128 lanes. Returns (the result, its wall
     seconds, {kernel: its launches}, {kernel: its lanes a launch}, the
     largest difference from the plain march, timings at 64 and 128
-    lanes)."""
+    lanes, the LM graphs' captures and replays in the polar)."""
     g = pgold["polar"]
     coords = np.asarray(naca4_coords(*g["naca"]), np.float32)
     mk.march_launches = 0
     mk.wake_launches = 0
     sweep.walk_solves.update(cont=0, trip=0)
+    counts0 = graph_counts(graphs)
     with lm_rounds_recorded(newton) as runs, recording(mk) as calls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2070,6 +2092,8 @@ def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
         wall = time.perf_counter() - t0
     launches = {"bl_march": mk.march_launches,
                 "bl_march_wake": mk.wake_launches}
+    lm_graphs = dict(zip(("captures", "replays"), np.subtract(
+        graph_counts(graphs), counts0).tolist()))
     walk = dict(sweep.walk_solves)
     n_walk = walk["cont"] + walk["trip"]
     p = sweep._bucket_size(len(g["alphas"]))
@@ -2104,7 +2128,8 @@ def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
         f"{walk['cont']} continuation and {walk['trip']} trip solves "
         f"(rounds {[r for _, r in runs[1:1 + n_walk]]}); rescue pass "
         f"{'run' if passes == 2 else 'not needed'}; march launches "
-        f"{launches} (side lanes a launch: {sides}; wake: {wakes}); modes "
+        f"{launches} (side lanes a launch: {sides}; wake: {wakes}); LM "
+        f"graphs {lm_graphs}; modes "
         f"{res.mode.tolist()} {'ok' if not fails else 'FAIL ' + str(fails)}")
     require(not fails, f"polar: {fails}")
     worst, _batch = hold_recorded_marches(
@@ -2172,7 +2197,7 @@ def phase_polar(dev, card, pgold, sweep, newton, mk, plain):
             f"{at_lanes[lanes]['bl_march_wake'][0]:.4f} ms, bound "
             f"{at_lanes[lanes]['bl_march_wake'][1][0] * 1e3:.3f} us ({card})")
     lanes_of = {"bl_march": sorted(sides), "bl_march_wake": sorted(wakes)}
-    return res, wall, launches, lanes_of, worst, at_lanes
+    return res, wall, launches, lanes_of, worst, at_lanes, lm_graphs
 
 
 def phase_batch(dev, pgold, polar, newton, mk):
@@ -2298,7 +2323,7 @@ def phase_served(pgold, make_server, parse_upload, stats, polar_res,
     return {"polar": t_polar, "batch": t_batch}
 
 
-def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
+def phase_newton_speed(card, dev, newton, graphs, op, mk, plain, side_call,
                        wake_call):
     """The Newton solve's profile at the speed point: wall time, rounds and
     LM iterations, host synchronisations, device time and busy share; one
@@ -2341,19 +2366,11 @@ def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
         return newton.solve_viscous_newton(op, alpha, re)
 
     solve()                                     # warm
-    n_lm = [0]
-    lm_step = newton._System.lm_step
-
-    def counted(self, zz, lam):
-        n_lm[0] += 1
-        return lm_step(self, zz, lam)
-
-    newton._System.lm_step = counted
-    try:
-        r = solve()
-        torch.cuda.synchronize()
-    finally:
-        newton._System.lm_step = lm_step
+    # The LM iterations are graph replays (viscous/graphs.py).
+    replays0 = sum(graphs.replays.values())
+    r = solve()
+    torch.cuda.synchronize()
+    n_lm = [sum(graphs.replays.values()) - replays0]
     iters = NEWTON_SHAPE["newton_iters"]
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -2424,6 +2441,298 @@ def phase_newton_speed(card, dev, newton, op, mk, plain, side_call,
     return ({"bl_march": (k_ms, plain_ms, k_dev),
              "bl_march_wake": (w_ms, w_plain_ms, w_dev)},
             {"bl_march": side_bound, "bl_march_wake": wake_bound})
+
+
+GRAPH_LANES = (1, 8, 32)
+GRAPH_CAPTURE = ("2412", 4.0, 1e6)           # where each key is captured
+GRAPH_REPLAYS = (("0012", 2.0, 3e5), ("2412", 8.0, 1e6))
+# The rounds held graph against eager: the eager round issues every one
+# of an iteration's ~15,300 operations from the host.
+GRAPH_ROUNDS = {"newton_iters": 4, "outer_rounds": 2}
+HEADLINE_ALPHAS = tuple(float(a) for a in range(-10, 21))     # 31 points
+SECOND_ALPHAS = tuple(float(a) for a in range(-6, 19))        # 25 points
+CONCURRENT_ALPHAS = (2.0, 4.0, 6.0)
+UPLOAD_POINT = (1e6, 5.0)                    # Re, alpha
+
+
+@contextlib.contextmanager
+def eager_lm(graphs):
+    """``graphs.run_lm`` replaced by the eager round (``_eager_lm``, the
+    graph's plain version) on the card."""
+    orig = graphs.run_lm
+    graphs.run_lm = lambda key, body, flat, iters: graphs._eager_lm(
+        body, flat, iters)
+    try:
+        yield
+    finally:
+        graphs.run_lm = orig
+
+
+@contextlib.contextmanager
+def lm_outputs(graphs):
+    """Records the (zz, lam) of every ``graphs.run_lm`` call: a round's."""
+    orig = graphs.run_lm
+    outs = []
+
+    def recorded(key, body, flat, iters):
+        out = orig(key, body, flat, iters)
+        outs.append(out)
+        return out
+
+    graphs.run_lm = recorded
+    try:
+        yield outs
+    finally:
+        graphs.run_lm = orig
+
+
+def graph_counts(graphs) -> tuple[int, int]:
+    return sum(graphs.captures.values()), sum(graphs.replays.values())
+
+
+def _graph_case(dev, newton, graphs, ops, p, naca, alpha, re, stacked):
+    """One key's rounds at one point, graphed and eager on the same
+    inputs: (equal bit for bit, graphs captured, LM iterations replayed,
+    rounds a lane, the lanes' best rms, the eager rounds' seconds)."""
+    op = [ops[naca]] * p if stacked else ops[naca]
+    alphas = torch.full((p,), alpha, dtype=torch.float32, device=dev)
+    system, _sc, _ws, zz_i = newton._prepare(
+        op, alphas, re, 9.0, 1.0, NEWTON_SHAPE["n_stations"],
+        NEWTON_SHAPE["n_wake"], NEWTON_SHAPE["warm_iters"])
+    args = (GRAPH_ROUNDS["newton_iters"], GRAPH_ROUNDS["outer_rounds"])
+    c0, r0 = graph_counts(graphs)
+    with lm_outputs(graphs) as g_out:
+        got = newton._lm_rounds(system, zz_i, *args)
+    c1, r1 = graph_counts(graphs)
+    t0 = time.perf_counter()
+    with eager_lm(graphs), lm_outputs(graphs) as e_out:
+        want = newton._lm_rounds(system, zz_i, *args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same = (_same_bits(got, want) and len(g_out) == len(e_out)
+            and all(_same_bits(a, b) for a, b in zip(g_out, e_out)))
+    return (same, c1 - c0, r1 - r0, got[2].tolist(),
+            [float(x) for x in got[1]], secs)
+
+
+def lm_iteration_times(newton, graphs, system, zz, lam) -> dict:
+    """One LM iteration of ``system``, graphed (``run_lm(.., 1)``: the
+    inputs' copy, one replay, the read-back) and eager (``lm_step``): wall
+    (median, synchronised), device time (profiler's kernel sum) and, for
+    the graph, its replay by CUDA events."""
+    system.run_lm(zz, lam, 1)
+    graph = graphs._GRAPHS[graphs.lm_key(system)].graph
+    out = {"graph_wall_ms": _median_s(lambda: system.run_lm(zz, lam, 1),
+                                      10) * 1e3,
+           "graph_replay_ms": cuda_ms(graph.replay, 10)}
+    with traced() as prof:
+        graph.replay()
+    out["graph_kernels"], us = kernel_events(prof)["all"]
+    out["graph_device_ms"] = us / 1e3
+    system.lm_step(zz, lam)
+    out["eager_wall_ms"] = _median_s(lambda: system.lm_step(zz, lam),
+                                     3) * 1e3
+    with traced() as prof:
+        system.lm_step(zz, lam)
+    out["eager_kernels"], us = kernel_events(prof)["all"]
+    out["eager_device_ms"] = us / 1e3
+    return out
+
+
+def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
+                 ops):
+    """Phase 20a: the LM iteration's CUDA graphs (``viscous.graphs``). (a)
+    at 1, 8 and 32 lanes, each key (shared operator, and stacked one a
+    lane at 8 and 32) captured at NACA 2412 alpha 4 Re 1e6 and replayed at
+    NACA 0012 alpha 2 Re 3e5 (shared) and NACA 2412 alpha 8 (stacked where
+    the key has it): ``_lm_rounds`` graphed equals the eager round on the
+    same inputs bit for bit (every round's state and damping, the best
+    state, its rms, the rounds); one LM iteration's wall and device time,
+    graphed and eager, at 1 and 32 lanes; (b) after
+    ``warm_polar_kernels(p=32)`` from an empty cache, the headline's
+    31-point polar and a 25-point one capture no graph; (c) three threads
+    solving one key at once each get their answer alone, bit for bit; (d)
+    an upload sent to a served port while ``start_warmup`` runs is
+    answered, equal to the same upload after the warm-up. Returns the
+    graphs' counters for the kernel line, and the headline polar's wall
+    seconds."""
+    graphs._GRAPHS.clear()
+    fails, cases = [], []
+    for p in GRAPH_LANES:
+        for stacked in ((False, True) if p > 1 else (False,)):
+            for i, (naca, alpha, re) in enumerate((GRAPH_CAPTURE,
+                                                   *GRAPH_REPLAYS)):
+                same, n_cap, n_rep, rounds, rms, secs = _graph_case(
+                    dev, newton, graphs, ops, p, naca, alpha, re, stacked)
+                want_cap = 1 if i == 0 else 0
+                ok = same and n_cap == want_cap and n_rep > 0
+                label = (f"{p} lane(s), "
+                         f"{'stacked' if stacked else 'shared'} operator, "
+                         f"NACA {naca} alpha {alpha:g} Re {re:g}")
+                cases.append(label)
+                log(f"[graphs] (a) {label} ({'capture' if i == 0 else 'replay'}"
+                    f"): graph {'==' if same else '!='} eager round bit for "
+                    f"bit; {n_cap} capture(s), {n_rep} LM iterations "
+                    f"replayed, rounds {rounds}, best rms "
+                    f"{[f'{x:.4g}' for x in rms[:4]]}; the eager rounds "
+                    f"{secs:.2f} s {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fails.append(label)
+    require(not fails, f"graph != eager round, or wrong captures: {fails}")
+
+    code, alpha, re = NEWTON_POINT
+    times = {}
+    for p in (1, 32):
+        alphas = np.linspace(-2.0, 6.0, p).tolist() if p > 1 else None
+        system, zz, lam = newton_system(dev, newton, ops[code], alphas)
+        times[p] = lm_iteration_times(newton, graphs, system, zz, lam)
+        log(f"[graphs] one LM iteration of {p} lane(s) (NACA {code}, "
+            f"{NEWTON_SHAPE['n_stations']} stations): graphed "
+            f"{times[p]['graph_wall_ms']:.3f} ms wall (median of 10, "
+            f"synchronised; copy in, one replay, read-back), replay "
+            f"{times[p]['graph_replay_ms']:.3f} ms (CUDA events, mean of "
+            f"10), {times[p]['graph_kernels']} device kernels, "
+            f"{times[p]['graph_device_ms']:.3f} ms of device time; eager "
+            f"{times[p]['eager_wall_ms']:.3f} ms wall (median of 3), "
+            f"{times[p]['eager_kernels']} device kernels, "
+            f"{times[p]['eager_device_ms']:.3f} ms of device time ({card})")
+        del system, zz, lam
+    t_solve = _median_s(lambda: newton.solve_viscous_newton(
+        ops[code], alpha, re), 3)
+    log(f"[graphs] default solve_viscous_newton NACA {code} alpha {alpha:g} "
+        f"Re {re:g}, graphed: {t_solve * 1e3:.3f} ms (median of 3, "
+        f"synchronised) ({card})")
+
+    # (b) A warmed bucket captures nothing. The march kernels run outside
+    # the graphs (the warm starts, the verdicts): their launches counted.
+    graphs._GRAPHS.clear()
+    c0, _r = graph_counts(graphs)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    sweep.warm_polar_kernels(p=32, device=dev)
+    t_warm = time.perf_counter() - t0
+    c1, _r = graph_counts(graphs)
+    def march_counts():
+        return {k: launch_counts()[k] for k in MARCH_KERNELS}
+
+    marches = {"warm_polar_kernels": march_counts()}
+    coords = np.asarray(naca4_coords(2, 4, 12, 100), np.float32)
+    walls = {}
+    for alphas in (HEADLINE_ALPHAS, SECOND_ALPHAS):
+        c_a, r_a = graph_counts(graphs)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        res = sweep.solve_polar(coords, alphas, 1e6, device=dev)
+        walls[len(alphas)] = time.perf_counter() - t0
+        marches[f"polar_{len(alphas)}"] = march_counts()
+        c_b, r_b = graph_counts(graphs)
+        ok = (c_b == c_a and r_b > r_a and len(res.cl) == len(alphas)
+              and np.isfinite(res.cl).all()
+              and all(marches[f"polar_{len(alphas)}"][k] > 0
+                      for k in MARCH_KERNELS))
+        log(f"[graphs] (b) solve_polar of {len(alphas)} points (bucket "
+            f"{sweep._bucket_size(len(alphas))}) after warm_polar_kernels("
+            f"p=32) ({t_warm:.2f} s, {c1 - c0} graphs captured, march "
+            f"launches {marches['warm_polar_kernels']}): {c_b - c_a} "
+            f"captures, {r_b - r_a} LM iterations replayed, march launches "
+            f"{marches[f'polar_{len(alphas)}']}, "
+            f"{walls[len(alphas)]:.3f} s wall, modes {res.mode.tolist()} "
+            f"({card}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"a polar of {len(alphas)} points in a warmed bucket "
+                    f"captured {c_b - c_a} graphs")
+    require(c1 - c0 == 3, f"warm_polar_kernels(p=32) captured {c1 - c0} "
+                          f"graphs, want 3 (pass, walk, rescue)")
+
+    # (c) Three threads solve one key at once.
+    op = ops["2412"]
+
+    def solve(a):
+        out = newton.solve_polar_point(op, a, 1e6)
+        torch.cuda.synchronize()
+        return [t for t in (*out[0], out[1][0], *out[1][1])]
+
+    alone = [solve(a) for a in CONCURRENT_ALPHAS]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(len(CONCURRENT_ALPHAS)) as pool:
+            together = [f.result(timeout=600) for f in
+                        [pool.submit(solve, a) for a in CONCURRENT_ALPHAS]]
+    finally:
+        sys.setswitchinterval(interval)
+    same = [_same_bits(a, b) for a, b in zip(alone, together)]
+    log(f"[graphs] (c) solve_polar_point at alpha {list(CONCURRENT_ALPHAS)} "
+        f"in three threads at once (one key): each equal to its solve alone "
+        f"bit for bit {same} {'ok' if all(same) else 'FAIL'}")
+    require(all(same), f"concurrent solves differ from solves alone: {same}")
+
+    # (d) An upload while start_warmup runs.
+    import logging
+    graphs._GRAPHS.clear()
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    keep = Keep(logging.INFO)
+    level = handlers.logger.level
+    handlers.logger.addHandler(keep)
+    handlers.logger.setLevel(logging.INFO)
+    httpd = make_server(host="127.0.0.1", port=0, rate_limit=False,
+                        device=dev)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/upload_airfoil/"
+    dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
+                                    for x, y in naca4_coords())
+    fields = {"reynolds": UPLOAD_POINT[0], "alpha": UPLOAD_POINT[1]}
+    files = {"file": ("naca2412.dat", dat.encode())}
+    try:
+        t0 = time.perf_counter()
+        warm = handlers.start_warmup(dev)
+        during = _post(url, fields, files)
+        alive = warm.is_alive()
+        t_during = time.perf_counter() - t0
+        warm.join(timeout=600)
+        t_warm = time.perf_counter() - t0
+        require(not warm.is_alive(), "start_warmup's thread did not end")
+        after = _post(url, fields, files)
+    finally:
+        handlers.logger.removeHandler(keep)
+        handlers.logger.setLevel(level)
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    msgs = [r.getMessage() for r in records]
+    failed = [m for m in msgs if "warmup failed" in m]
+    stages = [m for m in msgs if "warmup done in" in m]
+    ok = (warm.name == "solver-warmup" and warm.daemon and alive
+          and during[0] == 200 and during == after and not failed
+          and len(stages) == 3)
+    log(f"[graphs] (d) POST /upload_airfoil/ (NACA 2412, Re "
+        f"{UPLOAD_POINT[0]:g}, alpha {UPLOAD_POINT[1]:g}) while start_warmup "
+        f"ran (thread '{warm.name}', alive when answered: {alive}): "
+        f"{during[0]} in {t_during:.2f} s, CL "
+        f"{during[1].get('coefficients', {}).get('CL')}; the same after the "
+        f"warm-up ({t_warm:.2f} s: {stages}): "
+        f"{'equal' if during == after else 'DIFFERENT'}; warnings {failed} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "upload during the warm-up")
+
+    keys = {str(k[1:]): {"captures": graphs.captures.get(k, 0),
+                         "replays": graphs.replays.get(k, 0),
+                         "pool_bytes": v}
+            for k, v in graphs.pool_bytes.items()}
+    log(f"[graphs] a key ((lanes,), stations, wake, shared, panel nodes): "
+        f"its captures and replays in this process, its graph pool's bytes: "
+        f"{json.dumps(keys)} ({card})")
+    return ({"keys": keys,
+             "lm_iteration_ms": {str(p): t for p, t in times.items()},
+             "solve_viscous_newton_ms": t_solve * 1e3,
+             "headline_polar_s": walls[len(HEADLINE_ALPHAS)],
+             "march_launches": marches},
+            walls[len(HEADLINE_ALPHAS)])
 
 
 def phase_mask_speed(dev, card, masks, cfg_cls, WindTunnel):
@@ -3269,7 +3578,8 @@ def phase_models(dev, card, models, paneling, inviscid):
 
 
 def phase_headline(dev, card, headline, profiling, kernel, core, masks,
-                   cfg_cls, polar_res, polar_wall, polar_launches, work):
+                   cfg_cls, polar_res, polar_wall, polar_launches,
+                   polar_graphs, work):
     """Phase 30: the headline bench's two records on the card. Line 2 from
     ``bench_lbm`` at its three grids, each run through the kernel that
     holds the grid (``lbm_steps`` at 640x384 and 384x192,
@@ -3302,7 +3612,8 @@ def phase_headline(dev, card, headline, profiling, kernel, core, masks,
     log(f"[headline] line 2: {json.dumps(line2)}")
     modes = np.asarray(polar_res.mode)
     polar = dict(headline.polar_stats(polar_res, polar_wall), reps=1,
-                 warmup_seconds=None, launches=polar_launches)
+                 warmup_seconds=None, launches=polar_launches,
+                 lm_graphs=polar_graphs)
     line1 = headline.polar_record(polar, dev, card)
     want_modes = {"viscous": int(np.sum(modes == 0)),
                   "viscous_smoothed": int(np.sum(modes == 1)),
@@ -3416,6 +3727,7 @@ def main() -> int:
 
 
 def run(run_log_dir: str, work: str) -> int:
+    t_start = time.perf_counter()
     from airfoil_tpu_torch import cuda_build
     from airfoil_tpu_torch.config import LBMConfig
     from airfoil_tpu_torch.api.handlers import parse_upload
@@ -3426,8 +3738,8 @@ def run(run_log_dir: str, work: str) -> int:
     from airfoil_tpu_torch.lbm.runner import WindTunnel
     from airfoil_tpu_torch import inviscid, paneling, polar
     from airfoil_tpu_torch.polar import analyze as analyze_mod
-    from airfoil_tpu_torch.utils import stats
-    from airfoil_tpu_torch.viscous import coupled, march, newton, wake
+    from airfoil_tpu_torch.utils import compile_cache, stats
+    from airfoil_tpu_torch.viscous import coupled, graphs, march, newton, wake
     from airfoil_tpu_torch.viscous import kernel as march_kernel
 
     dev = resolve_device("cuda")
@@ -3436,7 +3748,7 @@ def run(run_log_dir: str, work: str) -> int:
         f"{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
 
-    k = phase_build(cuda_build, kernel, march_kernel)
+    k = phase_build(cuda_build, compile_cache, kernel)
     max_abs = dict(zip(("lbm_steps", "cell_word"),
                        phase_kernel(dev, kernel, core, masks, LBMConfig)))
     launches, _ = phase_server(kernel, make_server, parse_upload,
@@ -3485,17 +3797,27 @@ def run(run_log_dir: str, work: str) -> int:
     from airfoil_tpu_torch.polar import sweep
     pgold = load_goldens(POLAR_GOLDENS)
     polar_res, polar_wall, polar_launches, polar_lanes, polar_abs, \
-        at_lanes = phase_polar(dev, card, pgold, sweep, newton, march_kernel,
-                               march)
+        at_lanes, polar_graphs = phase_polar(dev, card, pgold, sweep, newton,
+                                             graphs, march_kernel, march)
     batch_res = phase_batch(dev, pgold, polar, newton, march_kernel)
     walls.update(phase_served(pgold, make_server, parse_upload, stats,
                               polar_res, batch_res))
     newton_times, newton_bounds = phase_newton_speed(
-        card, dev, newton, op, march_kernel, march, side_call, wake_call)
+        card, dev, newton, graphs, op, march_kernel, march, side_call,
+        wake_call)
     log(f"[newton speed] wall: analyze_airfoil alpha 4 {walls[4.0]:.3f} s, "
         f"alpha 19 {walls[19.0]:.3f} s; POST /upload_airfoil/ alpha 5 "
         f"{walls['upload']:.3f} s; POST /polar/ {walls['polar']:.3f} s; "
         f"POST /batch/ {walls['batch']:.3f} s ({card})")
+    # The LM iteration's CUDA graphs: graph against eager, warmed buckets,
+    # concurrency, an upload during the server's warm-up.
+    from airfoil_tpu_torch.api import handlers
+    t_graphs = time.perf_counter()
+    lm_graphs, _headline_wall = phase_graphs(dev, card, newton, graphs,
+                                             sweep, handlers, make_server,
+                                             ops)
+    log(f"[graphs] the graphs phase took "
+        f"{time.perf_counter() - t_graphs:.1f} s")
     newton_keys = {name: {
         "newton_launches": newton_launches[name],
         "newton_max_abs_err": newton_abs[name],
@@ -3592,7 +3914,7 @@ def run(run_log_dir: str, work: str) -> int:
     phase_models(dev, card, models, paneling, inviscid)
     headline_launches = phase_headline(
         dev, card, headline, profiling, kernel, core, masks, LBMConfig,
-        polar_res, polar_wall, polar_launches, work)
+        polar_res, polar_wall, polar_launches, polar_graphs, work)
     headline_launches.update(polar_launches)
     phase_flowviz(card, field)
     log(f"[headline] the models, headline and flowviz phases took "
@@ -3607,6 +3929,7 @@ def run(run_log_dir: str, work: str) -> int:
             keys["entry_launches"] = entry_launches[name]
         keys["headline_launches"] = headline_launches[name]
 
+    log(f"[done] every phase in {time.perf_counter() - t_start:.1f} s")
     refused = [m for m in sys.modules
                if m.partition(".")[0] in ("jax", "airfoil_tpu")]
     require(not refused, f"the reference or jax was imported: {refused[:5]}")
@@ -3617,7 +3940,10 @@ def run(run_log_dir: str, work: str) -> int:
         "plain_ms": times[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": None, **newton_keys.get(name, {})}
-        for name, (source, replaces) in KERNELS.items()]}))
+        for name, (source, replaces) in KERNELS.items()],
+        "lm_graphs": dict(lm_graphs,
+                          captures=sum(graphs.captures.values()),
+                          replays=sum(graphs.replays.values()))}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

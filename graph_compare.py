@@ -1,0 +1,157 @@
+"""The Newton solve of this checkout against an older tree of the port, on
+one GPU: ``python3 graph_compare.py OLD_TREE [OUT_JSON]``.
+
+``OLD_TREE`` is a directory holding an older ``airfoil_tpu_torch`` package,
+for example the parent commit's::
+
+    mkdir -p scratch/parent && git archive HEAD~1 airfoil_tpu_torch \\
+        | tar -x -C scratch/parent
+    python3 graph_compare.py scratch/parent
+
+Each tree runs in a child process of its own (the tree first on
+``sys.path``, its kernel libraries built into its own ``_build``), in
+turns: old, new, new, old. A child measures, through functions that both
+trees have:
+
+1. one LM iteration, ``system.run_lm(zz, lam, 1)`` after one warm call (a
+   graph replay with its copies where the tree has ``viscous.graphs``,
+   eager dispatch where it does not), at 1 lane (NACA 2412, alpha 4, Re
+   1e6, 160 panels, 96 stations) and 32 (alpha -2..6): median of 5,
+   synchronised;
+2. the default ``solve_viscous_newton`` at that point: one warm solve,
+   then the median of 3;
+3. the golden polar (NACA 2412, 80 points a side, alpha -2..6 step 2, Re
+   1e6) and the headline's polar (100 points a side, alpha -10..20 step 1):
+   each once, after ``warm_polar_kernels`` of its bucket where the tree
+   has it (as ``bench.py`` warms before it times); the polar's modes.
+
+Prints the card's name and power limit first, then one JSON line a child
+run, then the medians of each tree; writes them all to ``OUT_JSON`` where
+it is given. Exits non-zero if a child fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+POINT = ("2412", 4.0, 1e6)
+POLARS = {"golden": ((2, 4, 12, 80), [-2.0, 0.0, 2.0, 4.0, 6.0]),
+          "headline": ((2, 4, 12, 100), [float(a) for a in range(-10, 21)])}
+
+
+def _wall(fn, n: int) -> float:
+    import torch
+    t = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return statistics.median(t)
+
+
+def child(tree: str) -> dict:
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    import airfoil_tpu_torch
+    from airfoil_tpu_torch.inviscid import build_operator
+    from airfoil_tpu_torch.models import naca4
+    from airfoil_tpu_torch.paneling import panel_geometry, repanel
+    from airfoil_tpu_torch.polar import sweep
+    from airfoil_tpu_torch.viscous import kernel, newton
+
+    pkg = os.path.dirname(os.path.abspath(airfoil_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(tree):
+        raise RuntimeError(f"airfoil_tpu_torch from {pkg}, not {tree}")
+    try:
+        from airfoil_tpu_torch.viscous import graphs
+    except ImportError:
+        graphs = None
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    kernel.load()
+    out = {"tree": tree, "graphs": graphs is not None,
+           "build_s": time.perf_counter() - t0}
+    code, alpha, re = POINT
+    op = build_operator(panel_geometry(*repanel(
+        naca4(int(code[0]), int(code[1]), int(code[2:]), 100), 160,
+        device=dev)))
+    for p in (1, 32):
+        a = (torch.tensor(np.linspace(-2.0, 6.0, p), dtype=torch.float32,
+                          device=dev) if p > 1 else alpha)
+        system, _sc, _ws, zz = newton._prepare(op, a, re, 9.0, 1.0, 96, 20,
+                                               8)
+        lam = torch.full((zz.shape[0],), 1e-3, device=dev)
+        system.run_lm(zz, lam, 1)
+        out[f"lm_iteration_ms_{p}"] = _wall(
+            lambda: system.run_lm(zz, lam, 1), 5) * 1e3
+        del system, zz, lam
+    newton.solve_viscous_newton(op, alpha, re)
+    out["solve_viscous_newton_ms"] = _wall(
+        lambda: newton.solve_viscous_newton(op, alpha, re), 3) * 1e3
+    for name, (naca, alphas) in POLARS.items():
+        if graphs is not None:
+            t0 = time.perf_counter()
+            sweep.warm_polar_kernels(p=len(alphas), device=dev)
+            out[f"{name}_warm_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = sweep.solve_polar(np.asarray(naca4(*naca), np.float32), alphas,
+                                1e6, device=dev)
+        out[f"{name}_polar_s"] = time.perf_counter() - t0
+        out[f"{name}_modes"] = np.asarray(res.mode).tolist()
+    if graphs is not None:
+        out["captures"] = sum(graphs.captures.values())
+        out["replays"] = sum(graphs.replays.values())
+        out["pool_bytes"] = {str(k[1:]): v
+                             for k, v in graphs.pool_bytes.items()}
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--child":
+        print(json.dumps(child(argv[2])), flush=True)
+        return 0
+    if len(argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    old = os.path.abspath(argv[1])
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for tree in (old, ROOT, ROOT, old):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--child", tree], cwd=ROOT,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    keys = [k for k, v in runs[0].items()
+            if isinstance(v, float) and not k.endswith("_warm_s")]
+    summary = {which: {k: statistics.median(r[k] for r in runs
+                                             if r["tree"] == tree)
+                       for k in keys}
+               for which, tree in (("old", old), ("new", ROOT))}
+    print(json.dumps(summary), flush=True)
+    if len(argv) == 3:
+        with open(argv[2], "w") as f:
+            json.dump({"card": card, "runs": runs, "medians": summary}, f,
+                      indent=2)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

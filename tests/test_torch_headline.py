@@ -2,7 +2,8 @@
 against the repository's ``bench.py`` on the CPU, with the polar scripted.
 
 ``solve_polar`` is replaced in both by the same script (a ``PolarResult``
-whose modes follow a fixed mix, recording every call's inputs). The port's
+whose modes follow a fixed mix, recording every call's inputs), and
+``warm_polar_kernels`` by a no-op in both. The port's
 ``bench_polar`` must make the reference's calls (the warm-up, then one a
 repetition with alpha perturbed by 0.001 a repetition) on the same
 geometry and give the same point count, viscous fraction and mode counts,
@@ -81,8 +82,8 @@ def reference(tmp_path_factory):
 
 @pytest.fixture
 def scripted(monkeypatch):
-    """The port's ``solve_polar`` scripted as the reference's; yields the
-    list of its calls."""
+    """The port's ``solve_polar`` scripted as the reference's (and its
+    ``warm_polar_kernels`` a no-op); yields the list of its calls."""
     calls = []
 
     def solve_polar(coords, alphas, reynolds, n_panels=160, device=None):
@@ -98,6 +99,7 @@ def scripted(monkeypatch):
                                  mode != 2, z, z, z)
 
     monkeypatch.setattr(sweep, "solve_polar", solve_polar)
+    monkeypatch.setattr(sweep, "warm_polar_kernels", lambda **kw: None)
     yield calls
 
 

@@ -47,10 +47,9 @@ CORPUS = sorted(glob.glob(os.path.join(
 FORMATS = ("selig", "lednicer", "lednicer_3col", "lednicer_comment",
            "lednicer_nocounts", "multi", "noisy", "non_monotone", "reversed",
            "closed_te", "too_few")
-# Exports of the reference that the port leaves out: the XLA compile warmer
-# (set aside in ROADMAP.md queue 1: the port compiles nothing ahead) and the
-# Pallas kernel, whose counterpart is the port's ``lbm_steps``.
-NOT_EXPORTED = {"polar": {"warm_polar_kernels"}, "lbm": {"lbm_steps_pallas"}}
+# Exports of the reference that the port leaves out: the Pallas kernel,
+# whose counterpart is the port's ``lbm_steps``.
+NOT_EXPORTED = {"lbm": {"lbm_steps_pallas"}}
 CONSTANTS = ("MAX_FILE_SIZE", "MAX_POINTS", "MIN_POINTS", "MIN_REYNOLDS",
              "MAX_REYNOLDS", "MIN_ALPHA", "MAX_ALPHA", "MAX_CONCURRENT_SOLVES",
              "PORT", "ALLOWED_ORIGINS")
@@ -141,7 +140,9 @@ def test_port_imports_nothing_of_the_reference():
                 "airfoil_tpu_torch.interop.xfoil",
                 "airfoil_tpu_torch.utils.profiling",
                 "airfoil_tpu_torch.ui.flowviz",
-                "airfoil_tpu_torch.bench.headline"):
+                "airfoil_tpu_torch.bench.headline",
+                "airfoil_tpu_torch.utils.compile_cache",
+                "airfoil_tpu_torch.viscous.graphs"):
         assert mod in got["modules"]
     assert got["public"] > 0
     assert got["finite"] and got["step"] == 2

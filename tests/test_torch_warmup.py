@@ -1,0 +1,227 @@
+"""The port's compiled-program layer around the LM graphs, on the CPU:
+``utils/compile_cache.py``, ``polar.sweep.warm_polar_kernels``,
+``api.handlers.start_warmup``, ``minihttp.serve``'s call of it, and the
+headline bench's warm-up, each against what the reference does.
+
+- ``host_fingerprint`` equals the reference's on this host;
+  ``enable_persistent_compile_cache`` builds every kernel library (the
+  loaders recorded), with or without ``per_host``, and a failed build is
+  logged, not raised (as the reference's failure is).
+- ``warm_polar_kernels`` has the reference's parameters and defaults
+  (and ``device``), and solves at the bucket's shapes: the per-point pass
+  over the bucket's lanes (alphas -10..20, Re 1e6, on ``n_coords`` padded
+  coordinates), one continuation solve from the pass's first lane, the
+  smoothed rescue over min(8, bucket) lanes; none with ``rescue=False``.
+- ``start_warmup`` starts a daemon thread named ``solver-warmup`` that
+  runs the three stages in order (monkeypatched) on the given device, and
+  logs a failing stage without raising.
+- ``minihttp.serve`` starts the warm-up on its device before it serves
+  (``serve_forever`` stubbed).
+- ``bench_polar`` calls ``warm_polar_kernels`` (the 32 bucket; the point
+  count when reduced) before its warm polar, and splits
+  ``warmup_seconds`` into the two.
+"""
+
+import inspect
+import logging
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from airfoil_tpu.polar import sweep as ref_sweep
+from airfoil_tpu.utils import compile_cache as ref_cc
+from airfoil_tpu_torch.api import handlers, minihttp
+from airfoil_tpu_torch.bench import headline
+from airfoil_tpu_torch.models import naca4
+from airfoil_tpu_torch.polar import analyze, sweep
+from airfoil_tpu_torch.utils import compile_cache
+
+
+def test_host_fingerprint_is_the_reference():
+    assert compile_cache.host_fingerprint() == ref_cc.host_fingerprint()
+
+
+def test_compile_cache_signature():
+    assert inspect.signature(
+        compile_cache.enable_persistent_compile_cache) == inspect.signature(
+        ref_cc.enable_persistent_compile_cache)
+
+
+@pytest.mark.parametrize("per_host", [False, True])
+def test_compile_cache_builds_every_library(monkeypatch, per_host):
+    built = []
+    monkeypatch.setattr(compile_cache, "_loaders", lambda: {
+        name: (lambda n=name: built.append(n))
+        for name in ("lbm_steps", "lbm_steps_tiled", "bl_march")})
+    compile_cache.enable_persistent_compile_cache(per_host=per_host)
+    assert sorted(built) == ["bl_march", "lbm_steps", "lbm_steps_tiled"]
+
+
+def test_compile_cache_loaders_are_the_kernel_libraries():
+    from airfoil_tpu_torch.lbm import kernel as lbm_kernel
+    from airfoil_tpu_torch.viscous import kernel as march_kernel
+
+    assert compile_cache._loaders() == {
+        "lbm_steps": lbm_kernel.load, "lbm_steps_tiled": lbm_kernel.load_tiled,
+        "bl_march": march_kernel.load}
+
+
+def test_compile_cache_failure_is_logged(monkeypatch, caplog):
+    def broken():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(compile_cache, "_loaders",
+                        lambda: {"bl_march": broken})
+    with caplog.at_level(logging.WARNING, compile_cache.__name__):
+        compile_cache.enable_persistent_compile_cache()
+    assert "nvcc failed" in caplog.text
+
+
+def test_warm_polar_kernels_signature():
+    ref = inspect.signature(ref_sweep.warm_polar_kernels).parameters
+    port = inspect.signature(sweep.warm_polar_kernels).parameters
+    assert [(k, v.default) for k, v in ref.items()] == \
+        [(k, v.default) for k, v in port.items()][:len(ref)]
+    assert list(port)[len(ref):] == ["device"]
+
+
+@pytest.fixture
+def recorded_passes(monkeypatch):
+    """The sweep's solves replaced by recorders of their lanes."""
+    calls = []
+
+    def op_kernel(coords, n_panels=160):
+        calls.append(("op", tuple(coords.shape), n_panels))
+        return "op", None, None
+
+    def points(op, alphas, reynolds):
+        calls.append(("points", alphas.tolist(), reynolds.tolist()))
+        p = alphas.shape[0]
+        st = (torch.arange(p * 3.0).reshape(p, 3), torch.arange(p * 1.0),
+              torch.arange(p * 1.0) + 0.5)
+        return None, (None, st)
+
+    def cont(op, alpha, re, zz, xtr_u, xtr_l, n_stations=96):
+        calls.append(("cont", float(alpha), float(re), zz.tolist(),
+                      float(xtr_u), float(xtr_l), n_stations))
+
+    def rescue(op_s, a_b, re_b):
+        calls.append(("rescue", op_s, a_b.tolist(), re_b.tolist()))
+
+    monkeypatch.setattr(sweep, "_op_kernel", op_kernel)
+    monkeypatch.setattr(sweep, "_op_kernel_smoothed", lambda c, n: "op_s")
+    monkeypatch.setattr(sweep, "_points_kernel", points)
+    monkeypatch.setattr(sweep, "solve_polar_point_cont", cont)
+    monkeypatch.setattr(sweep, "_rescue_kernel", rescue)
+    return calls
+
+
+@pytest.mark.parametrize("p, bucket", [(32, 32), (11, 16), (5, 8)])
+def test_warm_polar_kernels_solves_the_bucket(recorded_passes, p, bucket):
+    sweep.warm_polar_kernels(p=p, device="cpu")
+    op, points, cont, rescue = recorded_passes
+    assert op == ("op", (192, 2), 160)
+    want = np.linspace(-10.0, 20.0, bucket, dtype=np.float32)
+    np.testing.assert_array_equal(points[1], want)
+    assert points[2] == [1e6] * bucket
+    assert cont == ("cont", -10.0, 1e6, [0.0, 1.0, 2.0], 0.0, 0.5,
+                    sweep._N_STATIONS)
+    r = min(8, bucket)
+    assert rescue[:2] == ("rescue", "op_s")
+    np.testing.assert_array_equal(rescue[2], want[:r])
+    assert rescue[3] == [1e6] * r
+
+
+def test_warm_polar_kernels_without_rescue(recorded_passes):
+    sweep.warm_polar_kernels(p=8, n_coords=128, n_panels=96, rescue=False,
+                             device="cpu")
+    assert [c[0] for c in recorded_passes] == ["op", "points", "cont"]
+    assert recorded_passes[0] == ("op", (128, 2), 96)
+
+
+@pytest.fixture
+def stages(monkeypatch):
+    calls = []
+    monkeypatch.setattr(compile_cache, "enable_persistent_compile_cache",
+                        lambda: calls.append(("cache",)))
+    monkeypatch.setattr(sweep, "warm_polar_kernels",
+                        lambda **kw: calls.append(("polar", kw)))
+
+    def analyze_airfoil(coords, reynolds, alpha, device=None):
+        calls.append(("analyze", np.asarray(coords).tolist(), reynolds,
+                      alpha, device))
+
+    monkeypatch.setattr(analyze, "analyze_airfoil", analyze_airfoil)
+    return calls
+
+
+def test_start_warmup_runs_the_stages_in_order(stages):
+    t = handlers.start_warmup("cpu")
+    assert isinstance(t, threading.Thread)
+    assert t.name == "solver-warmup" and t.daemon
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert [c[0] for c in stages] == ["cache", "polar", "analyze"]
+    assert stages[1][1] == {"p": 32, "device": "cpu"}
+    assert stages[2][1:] == (naca4(2, 4, 12, 60).tolist(), 1e6, 14.0, "cpu")
+
+
+def test_start_warmup_logs_a_failure(stages, monkeypatch, caplog):
+    def broken(**kw):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(sweep, "warm_polar_kernels", broken)
+    with caplog.at_level(logging.INFO, handlers.__name__):
+        t = handlers.start_warmup("cpu")
+        t.join(timeout=60)
+    assert not t.is_alive()
+    assert [c[0] for c in stages] == ["cache"]
+    assert "solver warmup failed" in caplog.text
+    assert "capture failed" in caplog.text
+
+
+def test_serve_starts_the_warmup(monkeypatch):
+    calls = []
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            calls.append("serve_forever")
+
+    def make_server(host, port, device=None):
+        calls.append(("make_server", str(device)))
+        return Server()
+
+    monkeypatch.setattr(minihttp, "make_server", make_server)
+    monkeypatch.setattr(handlers, "start_warmup",
+                        lambda device=None: calls.append(("warmup",
+                                                          str(device))))
+    minihttp.serve(port=0, device="cpu")
+    assert calls == [("make_server", "cpu"), ("warmup", "cpu"),
+                     "serve_forever"]
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_bench_polar_warms_before_its_warm_polar(monkeypatch, reduced):
+    calls = []
+    monkeypatch.setattr(sweep, "warm_polar_kernels",
+                        lambda **kw: calls.append(("warm", kw)))
+
+    def solve_polar(coords, alphas, reynolds, n_panels=160, device=None):
+        calls.append(("polar", len(alphas)))
+        p = len(alphas)
+        z = np.zeros(p, np.float32)
+        return sweep.PolarResult(np.asarray(alphas), z + reynolds, z, z, z,
+                                 z, np.zeros(p, int), z == 0, z, z, z)
+
+    monkeypatch.setattr(sweep, "solve_polar", solve_polar)
+    got = headline.bench_polar(reduced=reduced, reps=1, device="cpu")
+    n = 11 if reduced else 31
+    assert calls == [("warm", {"p": n if reduced else 32,
+                               "device": torch.device("cpu")}),
+                     ("polar", n), ("polar", n)]
+    assert set(got["warmup_seconds"]) == {"warm_polar_kernels", "polar"}
+    assert got["lm_graphs"] == {"captures": 0, "replays": 0}

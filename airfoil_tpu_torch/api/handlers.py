@@ -58,9 +58,11 @@ def start_warmup(device=None) -> threading.Thread:
     shapes in a daemon thread named ``solver-warmup``, so that the first
     requests do not pay for them (the reference's warm-up of its XLA
     compiles): every kernel library (``enable_persistent_compile_cache``),
-    the 32-point polar bucket's graphs (``warm_polar_kernels``), then an
+    the 32-point polar bucket's graphs (``warm_polar_kernels``), an
     alpha-14 analysis of NACA 2412 at Re 1e6 (the Newton, continuation and
-    rescue keys of ``/upload_airfoil/``). Each stage's seconds are logged,
+    rescue keys of ``/upload_airfoil/``), then the one-lane direct solve
+    at 160 panels that the analysis falls back to last
+    (``analyze.warm_direct_solve``). Each stage's seconds are logged,
     and a failure is logged, not raised. A request that arrives meanwhile
     is served: it waits only for a capture of its own key, each capture
     leaves other threads' work alone (``viscous.graphs``). On ``device``
@@ -69,7 +71,10 @@ def start_warmup(device=None) -> threading.Thread:
     def _warm():
         try:
             from airfoil_tpu_torch.models import naca4
-            from airfoil_tpu_torch.polar.analyze import analyze_airfoil
+            from airfoil_tpu_torch.polar.analyze import (
+                analyze_airfoil,
+                warm_direct_solve,
+            )
             from airfoil_tpu_torch.polar.sweep import warm_polar_kernels
             from airfoil_tpu_torch.utils.compile_cache import (
                 enable_persistent_compile_cache,
@@ -87,6 +92,10 @@ def start_warmup(device=None) -> threading.Thread:
             analyze_airfoil(naca4(2, 4, 12, 60), reynolds=1e6, alpha=14.0,
                             device=device)
             logger.info("analysis warmup done in %.1fs",
+                        time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            warm_direct_solve(device=device)
+            logger.info("direct solve warmup done in %.1fs",
                         time.perf_counter() - t0)
         except Exception:            # noqa: BLE001 - warm-up is best-effort
             logger.exception("solver warmup failed")

@@ -12,8 +12,8 @@ non-zero exit and a traceback, after whatever lines were already printed.
 
 The polar is NACA 2412 (100 points a side), alpha -10..20 step 1, Re 1e6,
 through the served ``polar.sweep.solve_polar``: ``warm_polar_kernels`` of
-the 32-point bucket (the march kernel's build and the LM graphs'
-captures), one warm-up call, then ``reps`` timed calls with alpha
+the 32-point bucket (the march kernel's build and the Newton solve's
+graph captures), one warm-up call, then ``reps`` timed calls with alpha
 perturbed by 0.001 a repetition, as ``bench.py`` does. The LBM throughput is
 ``lbm.bench.bench_mlups`` at 640x384 (the resident ``lbm_steps``), the
 served 384x192 and 2048x1024 (past the resident kernel's capacity:
@@ -107,8 +107,11 @@ def _march_launches() -> dict:
 
 
 def _graph_counts() -> dict:
-    return {"captures": sum(graphs.captures.values()),
-            "replays": sum(graphs.replays.values())}
+    """Each solver program's graph captures and replays (LM iterations for
+    ``"lm"``, calls for the others)."""
+    return {prog: {"captures": graphs.total(graphs.captures, prog),
+                   "replays": graphs.total(graphs.replays, prog)}
+            for prog in graphs.PROGRAMS}
 
 
 def bench_polar(reduced: bool = False, reps: int | None = None,
@@ -116,8 +119,9 @@ def bench_polar(reduced: bool = False, reps: int | None = None,
     """The polar's summary (``polar_stats``) averaged over ``reps`` timed
     calls (default 3, 1 when ``reduced``), plus ``reps``, the warm-up's
     seconds (``warm_polar_kernels``, then one polar), and the march
-    kernels' launches and the LM graphs' captures and replays in the timed
-    calls."""
+    kernels' launches, the LM graphs' captures and iterations replayed
+    (``lm_graphs``) and every solver program's captures and replays
+    (``solver_graphs``) in the timed calls."""
     dev = resolve_device(device)
     coords = np.asarray(naca4(2, 4, 12, 100), np.float32)
     alphas = REDUCED_ALPHAS if reduced else FULL_ALPHAS
@@ -132,18 +136,19 @@ def bench_polar(reduced: bool = False, reps: int | None = None,
     sweep.solve_polar(coords, alphas, REYNOLDS, device=dev)
     warmup = {"warm_polar_kernels": t1 - t0,
               "polar": time.perf_counter() - t1}
-    before = {**_march_launches(), **_graph_counts()}
+    before, graphs0 = _march_launches(), _graph_counts()
     t0 = time.perf_counter()
     for rep in range(reps):
         # Perturb the inputs so that no layer can serve a cached answer.
         out = sweep.solve_polar(coords, alphas + 0.001 * rep, REYNOLDS,
                                 device=dev)
     dt = (time.perf_counter() - t0) / reps
-    after = {**_march_launches(), **_graph_counts()}
-    delta = {k: after[k] - before[k] for k in after}
+    after, graphs1 = _march_launches(), _graph_counts()
+    solver = {prog: {k: n - graphs0[prog][k] for k, n in c.items()}
+              for prog, c in graphs1.items()}
     return dict(polar_stats(out, dt), reps=reps, warmup_seconds=warmup,
-                launches={k: delta[k] for k in _march_launches()},
-                lm_graphs={k: delta[k] for k in _graph_counts()})
+                launches={k: after[k] - before[k] for k in after},
+                lm_graphs=solver["lm"], solver_graphs=solver)
 
 
 def _parity_extra() -> dict:
@@ -174,6 +179,7 @@ def polar_record(polar: dict, dev: torch.device, card: str | None) -> dict:
                   "warmup_seconds": polar["warmup_seconds"],
                   "launches": polar["launches"],
                   "lm_graphs": polar["lm_graphs"],
+                  "solver_graphs": polar["solver_graphs"],
                   "parity": _parity_extra()},
     }
 

@@ -87,6 +87,19 @@ def _bl_payload(res: ViscousResult) -> dict:
     }
 
 
+def warm_direct_solve(device=None) -> None:
+    """Capture the graph of the direct solve that ``analyze_airfoil``'s
+    last resort runs at its default 160 panels (one lane, the solver's
+    defaults; ``viscous.graphs``), so that the first upload that needs it
+    captures nothing: NACA 2412 at alpha 5, Re 1e6, on ``device`` (see
+    ``resolve_device``); on the CPU the same solve runs eagerly."""
+    from airfoil_tpu_torch.models import naca4
+
+    dev = resolve_device(device)
+    xp, yp = repanel(naca4(2, 4, 12, 60), 160, device=dev)
+    solve_viscous(build_operator(panel_geometry(xp, yp)), 5.0, 1e6)
+
+
 def analyze_airfoil(
     coords,
     reynolds: float,

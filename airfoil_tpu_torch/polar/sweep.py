@@ -20,8 +20,8 @@ A polar is a hybrid parallel/sequential pipeline:
 
 The audits, the carry and the selection are the reference's, decision for
 decision; see its module for why each band and gate is what it is.
-``warm_polar_kernels`` builds the march kernel and captures the LM
-iteration's CUDA graphs of a point-count bucket before the first request,
+``warm_polar_kernels`` builds the march kernel and captures the Newton
+solve's CUDA graphs of a point-count bucket before the first request,
 where the reference compiles its jitted pipeline.
 """
 
@@ -427,9 +427,11 @@ def _pad_coords(coords: torch.Tensor) -> torch.Tensor:
 def warm_polar_kernels(p: int = 32, n_coords: int = 192,
                        n_panels: int = 160, rescue: bool = True,
                        device=None) -> None:
-    """Build the march kernel and capture the LM iteration's graph of
-    every shape key a polar of ``p`` points solves at (``viscous.graphs``),
-    so that the first real ``solve_polar`` in that bucket captures nothing.
+    """Build the march kernel and capture the Newton solve's graphs (the
+    lanes' set-up and warm start, a round's re-projection, LM iteration
+    and bookkeeping, the answer; ``viscous.graphs``) of every shape key a
+    polar of ``p`` points solves at, so that the first real
+    ``solve_polar`` in that bucket captures nothing.
 
     Dummy inputs at the served shapes, as the reference's: NACA 2412 with
     ``n_coords`` points, alphas over -10..20 at Re 1e6, ``p`` rounded up

@@ -16,7 +16,10 @@
    Cf; Cp, CL and Cm come from the final transpired surface speeds.
 
 The coupling loop reads nothing back to the host: ``converged`` stays a
-bool tensor.
+bool tensor. So the whole solve past its host part (``_direct_body``) is
+one program of ``viscous.graphs``: on the card one CUDA graph a shape key,
+captured once and replayed, as the reference's one ``jax.jit`` program a
+shape; on the CPU the same body eagerly.
 
 Geometries are lanes (the reference's ``vmap`` of the solve over
 geometries, ``bench/parser_benchmark.py``): ``solve_viscous`` takes one
@@ -33,6 +36,7 @@ rounds differently from its one-element path).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -46,7 +50,7 @@ from airfoil_tpu_torch.inviscid.panel_solver import (
 )
 from airfoil_tpu_torch import numerics as nm
 from airfoil_tpu_torch.numerics import clip, gradient, interp, nanmax, nanmin
-from airfoil_tpu_torch.viscous import kernel
+from airfoil_tpu_torch.viscous import graphs, kernel
 from airfoil_tpu_torch.viscous.march import BLState, wake_ctau0
 from airfoil_tpu_torch.viscous.wake import (
     WakeOperator,
@@ -251,6 +255,22 @@ def stack_lanes(trees):
     return type(first)(*(stack_lanes(f) for f in zip(*trees)))
 
 
+def _read_fields(op: InviscidOperator) -> InviscidOperator:
+    """``op`` with None for the fields that only a solve with transpiration
+    sources reads (``bn``, ``at_a``, ``at_b``, ``bt``): what the direct
+    solve and the Newton set-up read of an operator, and so all that their
+    graphs copy in."""
+    return op._replace(bn=None, at_a=None, at_b=None, bt=None)
+
+
+def _on_device(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a tensor of ``like``'s type on its device; a number is
+    filled in on the device, not copied there from the host."""
+    if isinstance(v, (int, float)) and not isinstance(v, bool):
+        return torch.full((), float(v), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
 def solve_viscous(
     op: InviscidOperator,
     alpha_deg,
@@ -269,15 +289,40 @@ def solve_viscous(
     every field. Makes 2 x (``coupling_iters`` + 1) march calls (sides,
     wake), each one launch of the CUDA march kernel on a CUDA device,
     whatever B is.
+
+    The host part: the operators stacked, the numbers made tensors on the
+    device. The rest (``_direct_body``) is one program of the port's
+    compiled-program layer (``viscous.graphs``): on the card the replay of
+    its CUDA graph, captured once a key (device, lane shape, panels,
+    ``n_stations``, ``n_wake``, ``coupling_iters``, ``relax`` and the
+    numbers' shapes), on the CPU the same body eagerly.
     """
     if not isinstance(op, InviscidOperator):
         op = stack_lanes(list(op))
+    xm = op.pan.xm
+    dev = xm.device
+    # Every number of a call is a tensor before the body: one made inside
+    # it would be frozen into the graph at its capture.
+    alpha, re, n_crit_t, x_tr = (_on_device(v, xm) for v in (
+        alpha_deg, reynolds, n_crit, x_forced_transition))
+    scalars = (alpha, 1.0 / re, n_crit_t, x_tr)
+    flat, spec = graphs.flatten((_read_fields(op), *scalars))
+    key = (dev, tuple(xm.shape[:-1]), xm.shape[-1], n_stations, n_wake,
+           coupling_iters, relax, tuple(tuple(a.shape) for a in scalars))
+    return graphs.run("direct", key, functools.partial(
+        _direct_body, spec, n_stations, n_wake, coupling_iters, relax), flat)
+
+
+def _direct_body(spec, n_stations: int, n_wake: int, coupling_iters: int,
+                 relax: float, flat) -> ViscousResult:
+    """The direct solve as a plain function of the flat list of its
+    operator and its numbers (``spec`` their structure): what a CUDA
+    graph captures, and what runs eagerly on the CPU."""
+    op, alpha_deg, nu, n_crit, x_forced_transition = graphs.unflatten(
+        spec, flat)
     pan = op.pan
     lanes = pan.xm.shape[:-1]
     dtype, dev = pan.xm.dtype, pan.xm.device
-    # Scalars go to the device once, before the loop.
-    alpha_deg = torch.as_tensor(alpha_deg, dtype=dtype, device=dev)
-    nu = 1.0 / torch.as_tensor(reynolds, dtype=dtype, device=dev)
 
     sol0 = solve_inviscid(op, alpha_deg)
     vt0 = sol0.vt

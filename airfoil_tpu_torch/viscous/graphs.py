@@ -1,45 +1,63 @@
-"""CUDA graphs of the Newton solve's Levenberg-Marquardt iteration, one a
-shape key: the port's compiled-program layer.
+"""CUDA graphs of the solver's compiled programs, one a program and shape
+key: the port's compiled-program layer.
 
-The counterpart of the ``jax.jit`` caches of the reference's four Newton
-entries (``airfoil_tpu/viscous/newton.py:748-900``), whose LM loop is a
-``lax.while_loop`` compiled once per static shape. Eager PyTorch issues
-one LM iteration's ~15,300 small operations from Python every time; a
-graph captures them once and replays them without Python.
+The counterparts of the reference's ``jax.jit`` programs on the XFOIL
+path, each compiled once per static shape there. Eager PyTorch issues
+every small operation of such a program from Python every time; a graph
+captures them once and replays them without Python. The programs:
 
-- **The unit is one LM iteration** (``newton._lm_body``), replayed
-  ``newton_iters`` times a round. Its last operations copy the new
-  (zz, lam) into its own static inputs, so replay k + 1 starts where
-  replay k ended. A graph of a whole round would hold 12-14 x ~15,300
+- ``"lm"``: one Levenberg-Marquardt iteration (``newton._lm_body``),
+  replayed ``newton_iters`` times a round (``run_lm``). Its last
+  operations copy the new (zz, lam) into its own static inputs, so replay
+  k + 1 starts where replay k ended. Keyed by ``lm_key``: the device, the
+  lanes, the stations a side, the wake stations, whether the inviscid
+  operator is shared by the lanes or stacked one a lane, and the panel
   nodes.
-- **The key** (``lm_key``): the device, the lanes, the stations a side,
-  the wake stations, whether the inviscid operator is shared by the lanes
-  or stacked one a lane, and the panel nodes. These fix every shape of the
-  iteration; everything else is data.
-- **Static inputs.** The body is a plain function of a flat list of
-  tensors (``[zz, lam, *newton._LMTensors]``); each call copies its list
-  into the key's static buffers before it replays. The plan's constants
-  and the numerics' cached constants are read by address: they are cached
-  per shape and device and never freed. Nothing else is: a tensor read by
-  address would replay the first solve's data.
-- **Capture.** One eager iteration on the capture's own stream first
-  (cuBLAS and cuSOLVER handles and workspaces, the device constant
-  caches), then the capture, with ``capture_error_mode="thread_local"``:
-  another thread's work during a capture neither breaks it nor is broken
-  by it. One capture at a time in the process.
+- ``"direct"``: the whole direct solve, ``coupled.solve_viscous``
+  (``airfoil_tpu/viscous/coupled.py:294``), its ``coupling_iters`` + 1
+  passes in one graph.
+- ``"prepare"``, ``"reproject"``, ``"settle"``, ``"answer"``: the rest of
+  a Newton solve (``airfoil_tpu/viscous/newton.py:748-900``): the lanes'
+  set-up and warm start, a round's re-projection before its LM iterations
+  and its residual and lane bookkeeping after them, the lanes' answer with
+  its oracle march (``newton._prepare``, ``_lm_rounds``, ``_lane_answer``).
+
+Each program is a plain function of a flat list of tensors (``flatten``
+and ``unflatten`` turn nested tuples, named tuples and dicts of tensors
+into such a list and back); its key fixes every shape and every Python
+number the body reads, everything else is data.
+
+- **Static inputs.** Each call copies its list into the key's static
+  buffers before it replays. The plans' constants and the numerics'
+  cached constants are read by address: they are cached per shape and
+  device and never freed. Nothing else is: a tensor read by address would
+  replay the first call's data.
+- **Outputs** are read back as clones made under the key's lock, so a
+  later call of the key never overwrites what an earlier caller holds.
+- **Capture.** One eager call on the capture's own stream first (cuBLAS
+  and cuSOLVER handles and workspaces, the device constant caches, the
+  kernel libraries), then the capture, with
+  ``capture_error_mode="thread_local"``: another thread's work during a
+  capture neither breaks it nor is broken by it. One capture at a time in
+  the process.
 - **Concurrency.** Each key has a lock held from the inputs' copy to the
   outputs' read-back, and each call's read-back is an event the next
-  call's stream waits for: two solves of one key never share the static
+  call's stream waits for: two calls of one key never share the static
   buffers, on any streams.
+- **March launches.** ``viscous.kernel`` counts its launches in Python,
+  which a replay does not run: the launches of a capture (and of its warm
+  call) are tallied instead of counted, and every replay adds its graph's
+  tally to ``kernel.march_launches`` and ``kernel.wake_launches``.
 - **Devices.** On a CUDA tensor a capture or replay failure raises;
   nothing falls back to eager dispatch. On a CPU tensor there are no
-  graphs: ``run_lm`` calls the body eagerly (``_eager_lm``, the plain
-  version beside the graph, which the tests and ``chip_smoke.py`` also
-  hold the graph to on the card).
+  graphs: ``run`` and ``run_lm`` call the body eagerly (``_eager_lm`` is
+  the LM round's plain version, which the tests and ``chip_smoke.py``
+  also hold the graph to on the card).
 
-Counters, by key: ``captures`` (graphs captured), ``replays`` (LM
-iterations replayed), ``pool_bytes`` (the reserved bytes of the graph's
-private memory pool after its capture).
+Counters, by (program, key): ``captures`` (graphs captured), ``replays``
+(replays: LM iterations for ``"lm"``, calls for the others),
+``pool_bytes`` (the reserved bytes of the graph's private memory pool
+after its capture); ``total`` sums one program's.
 """
 
 from __future__ import annotations
@@ -47,13 +65,19 @@ from __future__ import annotations
 import threading
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
-__all__ = ["captures", "lm_key", "pool_bytes", "replays", "run_lm"]
+from airfoil_tpu_torch.viscous import kernel
 
-captures: dict = {}     # key -> graphs captured
-replays: dict = {}      # key -> LM iterations replayed
-pool_bytes: dict = {}   # key -> the graph pool's reserved bytes
-_GRAPHS: dict = {}      # key -> _Graph
+__all__ = ["PROGRAMS", "captures", "flatten", "lm_key", "pool_bytes",
+           "replays", "run", "run_lm", "total", "unflatten"]
+
+PROGRAMS = ("lm", "direct", "prepare", "reproject", "settle", "answer")
+
+captures: dict = {}     # (program, key) -> graphs captured
+replays: dict = {}      # (program, key) -> replays
+pool_bytes: dict = {}   # (program, key) -> the graph pool's reserved bytes
+_GRAPHS: dict = {}      # (program, key) -> _Graph
 _LOCK = threading.Lock()            # guards _GRAPHS and the counters
 _CAPTURE_LOCK = threading.Lock()    # one capture at a time
 
@@ -63,6 +87,35 @@ def lm_key(system) -> tuple:
     the lanes, panel nodes) of a ``newton._System``."""
     return (system.vt0.device, system.lanes, system.m_s, system.n_w,
             system.shared, system.op.pan.s.shape[-1])
+
+
+def total(counter: dict, program: str | None = None) -> int:
+    """``counter`` summed over every key of ``program`` (of every program
+    with None)."""
+    with _LOCK:
+        return sum(n for (prog, _key), n in counter.items()
+                   if program is None or prog == program)
+
+
+def flatten(tree) -> tuple[list, tuple]:
+    """The tensors of ``tree`` (tensors and None in tuples, lists, named
+    tuples and dicts, as ``torch.utils._pytree`` flattens them) and its
+    structure for ``unflatten``. Any other leaf raises: a number would be
+    frozen into a graph."""
+    leaves, spec = tree_flatten(tree)
+    for leaf in leaves:
+        if leaf is not None and not isinstance(leaf, torch.Tensor):
+            raise TypeError(f"a graph's inputs and outputs are tensors, not "
+                            f"{type(leaf).__name__}")
+    return ([t for t in leaves if t is not None],
+            (spec, tuple(t is None for t in leaves)))
+
+
+def unflatten(spec: tuple, flat) -> object:
+    """The tree of ``flatten``'s structure ``spec`` over its tensors."""
+    tree_spec, none = spec
+    it = iter(flat)
+    return tree_unflatten([None if n else next(it) for n in none], tree_spec)
 
 
 def _eager_lm(body, flat: list, iters: int):
@@ -79,15 +132,21 @@ def _count(counter: dict, key, n: int) -> None:
 
 
 class _Graph:
-    """One key's graph, its static inputs and its lock."""
+    """One key's graph, its static inputs and outputs, and its lock."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.graph = None
         self.static: list = []
-        self.done = None     # the last read-back's event
+        self.outs: list = []     # the graph's output tensors
+        self.spec = None         # their structure
+        self.launches: dict = {}     # march launches of one replay
+        self.done = None         # the last read-back's event
 
-    def capture(self, key, body, flat: list) -> None:
+    def capture(self, key, body, flat: list, feedback: bool) -> None:
+        """Capture ``body`` on static copies of ``flat``. With
+        ``feedback`` the body's outputs are copied into the first static
+        inputs inside the graph, and those are its outputs."""
         dev = flat[0].device
         static = [torch.empty_like(t) for t in flat]
         for s, t in zip(static, flat):
@@ -96,27 +155,33 @@ class _Graph:
         with _CAPTURE_LOCK:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), kernel.tallied():
                 body(static)
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                zz, lam = body(static)
-                static[0].copy_(zz)
-                static[1].copy_(lam)
+            with kernel.tallied() as launches, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                out = body(static)
+                if feedback:
+                    for s, o in zip(static, out):
+                        s.copy_(o)
+                    out = tuple(static[:len(out)])
             pool = graph.pool()
             reserved = sum(seg["total_size"]
                            for seg in torch.cuda.memory_snapshot()
                            if tuple(seg["segment_pool_id"]) == tuple(pool))
-        self.graph, self.static = graph, static
+        self.outs, self.spec = flatten(out)
+        self.graph, self.static, self.launches = graph, static, launches
         _count(captures, key, 1)
         with _LOCK:
             pool_bytes[key] = reserved
 
     def run(self, key, flat: list, iters: int):
+        if len(flat) != len(self.static):
+            raise ValueError(f"graph {key}: {len(flat)} inputs for "
+                             f"{len(self.static)} static buffers")
         for s, t in zip(self.static, flat):
             if s.shape != t.shape or s.dtype != t.dtype:
                 raise ValueError(
-                    f"LM graph {key}: input of shape {tuple(t.shape)} "
+                    f"graph {key}: input of shape {tuple(t.shape)} "
                     f"{t.dtype} for a static buffer of {tuple(s.shape)} "
                     f"{s.dtype}")
         stream = torch.cuda.current_stream(flat[0].device)
@@ -126,11 +191,36 @@ class _Graph:
             s.copy_(t)
         for _ in range(iters):
             self.graph.replay()
-        out = self.static[0].clone(), self.static[1].clone()
+        kernel.add_launches(self.launches, iters)
+        out = [o.clone() for o in self.outs]
         self.done = torch.cuda.Event()
         self.done.record(stream)
         _count(replays, key, iters)
-        return out
+        return unflatten(self.spec, out)
+
+
+def _replayed(program: str, key, body, flat: list, iters: int,
+              feedback: bool):
+    dev = flat[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{program} runs on cpu or cuda, not {dev}")
+    gkey = (program, key)
+    with _LOCK:
+        g = _GRAPHS.setdefault(gkey, _Graph())
+    with g.lock:
+        if g.graph is None:
+            g.capture(gkey, body, flat, feedback)
+        return g.run(gkey, flat, iters)
+
+
+def run(program: str, key, body, flat: list):
+    """``body(flat)`` (a flat list of tensors -> tensors in tuples, named
+    tuples and dicts): on a CUDA tensor by replaying the graph of
+    (``program``, ``key``), captured at its first call; on a CPU tensor
+    eagerly."""
+    if flat[0].device.type == "cpu":
+        return body(flat)
+    return _replayed(program, key, body, flat, 1, feedback=False)
 
 
 def run_lm(key, body, flat: list, iters: int):
@@ -138,14 +228,6 @@ def run_lm(key, body, flat: list, iters: int):
     (zz, lam)) from ``flat``: on a CUDA tensor by replaying ``key``'s graph
     (captured at the key's first call), on a CPU tensor eagerly. Returns
     the last (zz, lam)."""
-    dev = flat[0].device
-    if dev.type == "cpu":
+    if flat[0].device.type == "cpu":
         return _eager_lm(body, flat, iters)
-    if dev.type != "cuda":
-        raise ValueError(f"LM iterations run on cpu or cuda, not {dev}")
-    with _LOCK:
-        g = _GRAPHS.setdefault(key, _Graph())
-    with g.lock:
-        if g.graph is None:
-            g.capture(key, body, flat)
-        return g.run(key, flat, iters)
+    return _replayed("lm", key, body, flat, iters, feedback=True)

@@ -12,11 +12,14 @@ and a failed build or launch raises; there is no fallback.
 ``march_launches`` counts the ``march_side`` calls that went to the CUDA
 kernel (``march_side_kernel``), ``wake_launches`` the ``march_wake`` ones
 (``march_wake_kernel``); the CPU path touches neither. Read them on the
-module (``kernel.march_launches``).
+module (``kernel.march_launches``). A launch captured into a CUDA graph
+(``viscous.graphs``) is tallied, not counted (``tallied``), and counted at
+each replay of the graph (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -32,6 +35,7 @@ __all__ = ["load", "march_side", "march_wake"]
 march_launches = 0
 wake_launches = 0
 _COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()     # this thread's tally while it captures
 # Rounding as torch's one-operation-per-kernel arithmetic: no contraction
 # of multiply-adds into FMAs.
 _FLAGS = ("-fmad=false",)
@@ -74,8 +78,32 @@ def _launch(lib, fn: str, args, device: torch.device, counter: str) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} failed: "
                            f"{lib.bl_error_string(err).decode()}")
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[counter] = tally.get(counter, 0) + 1
+        return
     with _COUNT_LOCK:
         globals()[counter] += 1
+
+
+@contextlib.contextmanager
+def tallied():
+    """Inside, this thread's launches go to the dict it yields ({counter
+    name: launches}) instead of the counters: a graph's capture, whose
+    launches run at its replays."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = {}
+    try:
+        yield _TALLY.counts
+    finally:
+        _TALLY.counts = outer
+
+
+def add_launches(tally: dict, times: int = 1) -> None:
+    """Count ``times`` the launches of ``tally`` (a replayed graph's)."""
+    with _COUNT_LOCK:
+        for counter, n in tally.items():
+            globals()[counter] += n * times
 
 
 def march_side(s, ue, x, nu, n_crit=9.0, x_forced_transition=1.0

@@ -41,12 +41,17 @@ How it runs on the card:
   solves, and the candidate chosen by ``torch.where``/``argmax`` on the
   device. The only host reads of a solve are the round loop's lane mask,
   once a round, and what the caller reads of the result.
-- A round's LM iterations are ``_lm_body``, a plain function of a flat
-  list of tensors (the state, the damping and ``_System.lm_tensors``): on
-  the card ``viscous.graphs`` captures it once a shape key as a CUDA graph
-  and replays it ``newton_iters`` times a round (the counterpart of the
-  reference's ``jax.jit`` programs); on the CPU the round calls it
-  eagerly. The re-projection and the round's residual stay eager.
+- The solve is five programs of ``viscous.graphs``, each a plain
+  function of a flat list of tensors: the lanes' set-up and warm start
+  (``_prepare_body``), a round's re-projection (``_reproject_body``), its
+  LM iterations (``_lm_body``: the state, the damping and
+  ``_System.lm_tensors``, replayed ``newton_iters`` times a round), its
+  residual and lane bookkeeping (``_settle_body``) and the answer
+  (``_answer_body``). On the card each is captured once a shape key as a
+  CUDA graph and replayed (the counterpart of the reference's ``jax.jit``
+  programs); on the CPU the same bodies run eagerly. The lane values are
+  made before the bodies, so no number a call varies is frozen into a
+  graph.
 - The boundary-layer marches (the warm start's side marches of 2P lanes
   at the solve's station count, the verdict's, and the fallback's wake
   march of P lanes) go through ``viscous.kernel``: the CUDA march kernel
@@ -78,6 +83,7 @@ from airfoil_tpu_torch.viscous.coupled import (
     _at,
     _find_stagnation,
     _forces_from_cp,
+    _read_fields,
     _side_stations,
     _sigma_from_sides,
     _sigma_nodal_from_sides,
@@ -552,7 +558,8 @@ class _System:
         self.lanes = tuple(vt0.shape[:-1])
         self.shared = isinstance(op, InviscidOperator)
         self.plan = _plan_on(m_s, n_w, vt0.device)
-        if l_mat is not None:
+        if l_mat is not None or zz_lin is None:
+            # Given, or not needed: only an LM iteration reads it.
             self.l_mat = l_mat
             return
         # The interaction operator's Jacobian at the state the LM starts
@@ -989,6 +996,22 @@ def _n_lanes(op, alphas) -> int:
     return max(int(np.size(alphas)), 1)
 
 
+class _Prepared(NamedTuple):
+    """What ``_prepare``'s device work gives: a program's outputs."""
+
+    lane_op: _LaneOps | None    # the stacked operators (None when shared)
+    cl_inv: torch.Tensor        # (P,) inviscid CL
+    vt0: torch.Tensor
+    wop: WakeOperator
+    grid: _Grid
+    nu: torch.Tensor
+    x_trip_u: torch.Tensor      # the trips tightened to the warm fronts
+    x_trip_l: torch.Tensor
+    l_mat: torch.Tensor
+    zz0: torch.Tensor           # the warm start's state
+    warm_state: dict
+
+
 def _prepare(op, alpha_deg, reynolds, n_crit, x_forced_transition,
              n_stations, n_wake, warm_iters, init_state=None,
              x_trip_lower=None):
@@ -996,19 +1019,51 @@ def _prepare(op, alpha_deg, reynolds, n_crit, x_forced_transition,
     system: (system, scalars, warm state, start state). ``op`` is one
     operator (shared by every lane) or a sequence of P; the other
     arguments are numbers, 0-d tensors or one value a lane; the start
-    state ``init_state`` is (zz (P, n3), ...)."""
+    state ``init_state`` is (zz (P, n3), ...).
+
+    The lane values are made here; the device work (``_prepare_body``) is
+    a program of ``viscous.graphs``, keyed as the LM iteration (``lm_key``)
+    plus ``warm_iters`` and whether ``init_state`` is given."""
     p = _n_lanes(op, alpha_deg)
-    like = (op if isinstance(op, InviscidOperator) else op[0]).pan.xm
+    shared = isinstance(op, InviscidOperator)
+    ops = op if shared else list(op)
+    first = op if shared else ops[0]
+    like = first.pan.xm
 
     def lanes(v):
         return _lane_vals(v, p, like)
 
     alpha, re, n_crit_t = lanes(alpha_deg), lanes(reynolds), lanes(n_crit)
-    nu = 1.0 / re
     x_trip_t = lanes(x_forced_transition)
     x_trip_lo_t = (x_trip_t if x_trip_lower is None
                    else lanes(x_trip_lower))
+    zz_init = None if init_state is None else init_state[0].reshape(p, -1)
+    flat, spec = graphs.flatten((
+        _read_fields(op) if shared else [_read_fields(o) for o in ops], alpha,
+        re, n_crit_t, x_trip_t, x_trip_lo_t, zz_init))
     m_s, n_w = n_stations, n_wake
+    key = (like.device, (p,), m_s, n_w, shared, first.pan.s.shape[-1],
+           warm_iters, zz_init is not None)
+    out = graphs.run("prepare", key, functools.partial(
+        _prepare_body, spec, m_s, n_w, warm_iters), flat)
+    system = _System(op if shared else out.lane_op, out.wop, out.grid,
+                     out.vt0, out.nu, m_s, n_w, n_crit_t, out.x_trip_u,
+                     out.x_trip_l, l_mat=out.l_mat)
+    scalars = dict(alpha=alpha, re=re, nu=out.nu, cl_inv=out.cl_inv,
+                   x_trip=x_trip_t, x_trip_lo=x_trip_lo_t)
+    zz_i = out.zz0 if zz_init is None else zz_init
+    return system, scalars, out.warm_state, zz_i
+
+
+def _prepare_body(spec, m_s: int, n_w: int, warm_iters: int,
+                  flat) -> _Prepared:
+    """``_prepare``'s device work as a plain function of the flat list of
+    the operators and the lane values (``spec`` their structure): the
+    lanes' set-up (its host loop over the lanes included), the warm start,
+    the trip ceilings and the interaction operator's Jacobian."""
+    op, alpha, re, n_crit_t, x_trip_t, x_trip_lo_t, zz_init = \
+        graphs.unflatten(spec, flat)
+    nu = 1.0 / re
     lane_op, cl_inv, vt0, wop, grid = _lane_setup(op, alpha, m_s, n_w)
 
     zz0, xtr_u_march, xtr_l_march, warm_state = _warm_start(
@@ -1024,12 +1079,13 @@ def _prepare(op, alpha_deg, reynolds, n_crit, x_forced_transition,
     x_trip_u_t = minimum(x_trip_t, ceiling(xtr_u_march))
     x_trip_l_t = minimum(x_trip_lo_t, ceiling(xtr_l_march))
 
-    zz_i = zz0 if init_state is None else init_state[0].reshape(p, -1)
+    zz_i = zz0 if zz_init is None else zz_init
     system = _System(lane_op, wop, grid, vt0, nu, m_s, n_w, n_crit_t,
                      x_trip_u_t, x_trip_l_t, zz_i)
-    scalars = dict(alpha=alpha, re=re, nu=nu, cl_inv=cl_inv, x_trip=x_trip_t,
-                   x_trip_lo=x_trip_lo_t)
-    return system, scalars, warm_state, zz_i
+    return _Prepared(
+        None if isinstance(op, InviscidOperator) else lane_op, cl_inv, vt0,
+        wop, grid, nu, x_trip_u_t, x_trip_l_t, system.l_mat, zz0,
+        warm_state)
 
 
 def _lm_rounds(system, zz_i, newton_iters: int, outer_rounds: int):
@@ -1040,33 +1096,70 @@ def _lm_rounds(system, zz_i, newton_iters: int, outer_rounds: int):
     settled (rms below the gate) or futile (a round made less than 8%
     relative progress) and keeps its carry frozen from then on; the loop
     ends when no lane is active. The lane mask is the one host read a
-    round. A round's iterations are ``system.run_lm``: on the card the
-    replays of its shape key's graph, the re-projection and the round's
-    residual eager around them. Returns the best state, its rms and the
-    rounds each lane ran, (P, n3), (P,) and (P,)."""
+    round. A round is three programs of ``viscous.graphs`` keyed by
+    ``lm_key``: the re-projection (``_reproject_body``), the LM iterations
+    (``system.run_lm``) and the residual with the lanes' bookkeeping
+    (``_settle_body``). Returns the best state, its rms and the rounds
+    each lane ran, (P, n3), (P,) and (P,)."""
     p = zz_i.shape[0]
     zz, lam = zz_i, _lane_vals(1e-3, p, zz_i)
     best_zz = zz_i
     best_rms = rms_prev = _lane_vals(torch.inf, p, zz_i)
     done = torch.zeros(p, dtype=torch.bool, device=zz_i.device)
     rounds = torch.zeros(p, dtype=torch.int32, device=zz_i.device)
+    key = graphs.lm_key(system)
+    shape = (system.m_s, system.n_w)
+    # What each body reads of the system (None for what it does not).
+    t_settle = system.lm_tensors()._replace(l_mat=None)
+    t_reproject = t_settle._replace(xi_w=None, xt_u=None, xt_l=None,
+                                    x_trip_u=None, x_trip_l=None)
     for _ in range(outer_rounds):
-        act = ~done
-        rounds = rounds + act.to(torch.int32)
-        zz_r = system.reproject_n(zz)
-        zz_r, lam_r = system.run_lm(zz_r, maximum(lam, 1e-4), newton_iters)
-        rms_r = _rms(system.residual(zz_r))
-        ok_r = act & (rms_r < best_rms) & torch.isfinite(zz_r).all(-1)
-        best_zz = torch.where(ok_r[:, None], zz_r, best_zz)
-        best_rms = torch.where(ok_r, rms_r, best_rms)
-        done_r = (rms_r < _RMS_OK) | (rms_r > _FUTILITY * rms_prev)
-        zz = torch.where(act[:, None], zz_r, zz)
-        lam = torch.where(act, lam_r, lam)
-        rms_prev = torch.where(act, rms_r, rms_prev)
-        done = done | (act & done_r)
-        if not bool((~done).any()):
+        flat, spec = graphs.flatten((zz, lam, done, rounds, t_reproject))
+        zz_r, lam_in, rounds = graphs.run(
+            "reproject", key,
+            functools.partial(_reproject_body, spec, *shape), flat)
+        zz_r, lam_r = system.run_lm(zz_r, lam_in, newton_iters)
+        flat, spec = graphs.flatten((zz_r, lam_r, zz, lam, best_zz,
+                                     best_rms, rms_prev, done, t_settle))
+        zz, lam, best_zz, best_rms, rms_prev, done, active = graphs.run(
+            "settle", key, functools.partial(_settle_body, spec, *shape),
+            flat)
+        if not bool(active):
             break
     return best_zz, best_rms, rounds
+
+
+def _reproject_body(spec, m_s: int, n_w: int, flat):
+    """A round's work before its LM iterations, as a plain function of the
+    flat list of (zz, lam, done, rounds, the ``_LMTensors`` it reads):
+    (the re-projected state, the floored damping, the rounds counted)."""
+    zz, lam, done, rounds, t = graphs.unflatten(spec, flat)
+    system = _System.of_lm_tensors(t, m_s, n_w)
+    rounds = rounds + (~done).to(torch.int32)
+    return system.reproject_n(zz), maximum(lam, 1e-4), rounds
+
+
+def _settle_body(spec, m_s: int, n_w: int, flat):
+    """A round's work after its LM iterations, as a plain function of the
+    flat list of (zz_r, lam_r, zz, lam, best_zz, best_rms, rms_prev, done,
+    the ``_LMTensors`` it reads): the round's residual, the best state
+    kept, the active lanes' carry taken, the settled and futile lanes
+    stopped; returns the new (zz, lam, best_zz, best_rms, rms_prev, done)
+    and whether a lane is still active."""
+    zz_r, lam_r, zz, lam, best_zz, best_rms, rms_prev, done, t = \
+        graphs.unflatten(spec, flat)
+    system = _System.of_lm_tensors(t, m_s, n_w)
+    act = ~done
+    rms_r = _rms(system.residual(zz_r))
+    ok_r = act & (rms_r < best_rms) & torch.isfinite(zz_r).all(-1)
+    best_zz = torch.where(ok_r[:, None], zz_r, best_zz)
+    best_rms = torch.where(ok_r, rms_r, best_rms)
+    done_r = (rms_r < _RMS_OK) | (rms_r > _FUTILITY * rms_prev)
+    zz = torch.where(act[:, None], zz_r, zz)
+    lam = torch.where(act, lam_r, lam)
+    rms_prev = torch.where(act, rms_r, rms_prev)
+    done = done | (act & done_r)
+    return zz, lam, best_zz, best_rms, rms_prev, done, (~done).any()
 
 
 def _solve_lanes(op, alpha_deg, reynolds, n_crit, x_forced_transition,
@@ -1081,12 +1174,53 @@ def _solve_lanes(op, alpha_deg, reynolds, n_crit, x_forced_transition,
     return _lane_answer(system, sc, warm_state, zz, rms)
 
 
+class _AnswerTensors(NamedTuple):
+    """What the lanes' answer reads of a system."""
+
+    op: _LaneOps                # the paneling and the body sensitivity
+    wop: WakeOperator
+    grid: _Grid
+    vt0: torch.Tensor
+    nu: torch.Tensor
+    n_crit: torch.Tensor
+    x_trip_u: torch.Tensor
+    x_trip_l: torch.Tensor
+
+
 def _lane_answer(system, sc, warm_state, zz, rms):
     """The lanes' answer at the state ``zz`` (P, n3), whose residual rms is
-    ``rms`` (P,): (ViscousResult, fallback scalars, final state)."""
+    ``rms`` (P,): (ViscousResult, fallback scalars, final state). A
+    program of ``viscous.graphs`` keyed by ``lm_key`` (``_answer_body``)."""
+    pan, wop = system.op.pan, system.wop
+    # What the body reads, None for what it does not.
+    t = _AnswerTensors(
+        _LaneOps(pan._replace(xp=None, yp=None, tx=None, ty=None),
+                 system.op.due_dsigma),
+        wop._replace(wpan=_s_only(wop.wpan.s)),
+        system.grid._replace(xi_w=None), system.vt0, system.nu,
+        system.n_crit, system.x_trip_u, system.x_trip_l)
+    sc = {k: sc[k] for k in ("alpha", "re", "cl_inv", "x_trip",
+                             "x_trip_lo")}
+    warm_state = dict(warm_state, **{
+        side: warm_state[side]._replace(amp=None, turb=None)
+        for side in ("bl_u", "bl_l")})
+    flat, spec = graphs.flatten((t, sc, warm_state, zz, rms))
+    res, fb, (xtr_u, xtr_l) = graphs.run(
+        "answer", graphs.lm_key(system), functools.partial(
+            _answer_body, spec, system.m_s, system.n_w), flat)
+    return res, fb, (zz, xtr_u, xtr_l)
+
+
+def _answer_body(spec, m_s: int, n_w: int, flat):
+    """The lanes' answer as a plain function of the flat list of
+    ``_AnswerTensors``, the lane values, the warm state, the state and its
+    rms (``spec`` their structure): (ViscousResult, fallback scalars,
+    (x_tr upper, x_tr lower)). Makes one side march of 2P lanes (the
+    verdict's oracle) and one wake march of P (the fallback's)."""
+    system, sc, warm_state, zz, rms = graphs.unflatten(spec, flat)
     pan, grid = system.op.pan, system.grid
     dtype = grid.xi_u.dtype
-    m_s, n_w, nu = system.m_s, system.n_w, system.nu
+    nu = system.nu
     n_crit_t = system.n_crit
     x_trip_u_t, x_trip_l_t = system.x_trip_u, system.x_trip_l
     p = zz.shape[0]
@@ -1212,7 +1346,7 @@ def _lane_answer(system, sc, warm_state, zz, rms):
         sigma=sigma_b, sigma_wake=sigma_w)
     fb = _fallback_scalars(system.op, system.wop, grid, system.vt0,
                            warm_state, sc["alpha"], nu, dtype, cl_inv=cl_inv)
-    return res, fb, (zz, xtr_u, xtr_l)
+    return res, fb, (xtr_u, xtr_l)
 
 
 def _lane0(tree):

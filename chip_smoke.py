@@ -123,14 +123,19 @@ of the reference ensemble's members with the same ``converged``:
     coordinates as the reference's, the coefficients within the bars of
     its ensemble, one run log, the analysis counter up by one;
 17. polar — ``solve_polar`` (NACA 2412, 80 points a side, alpha -2..6
-    step 2, Re 1e6: 5 points in a bucket of 8 lanes), held to
+    step 2, Re 1e6: 5 points in a bucket of 8 lanes), every program
+    graphed as a user runs it, held to
     ``tests/golden/torch_polar.json`` (``tests/make_torch_polar_goldens.py``):
     each point's ``mode`` one of the reference ensemble's, CL, CD, Cm and
     x_transition within the bars of the members with its mode and
-    ``converged``; the sweep's march launches and lanes (10 of 16 side
-    lanes and 1 of 8 wakes a per-point or rescue pass, 3 of 2 and 1 of 1 a
-    walk solve) and the walk's continuation and trip solves counted; the
-    per-point pass's marches held to the plain march as in phase 13 (a
+    ``converged``; its march launches and the walk's continuation and trip
+    solves counted (the kernel line's ``polar_launches``, line 1 of phase
+    30 and phase 27's one-process wall come from this run); then the same
+    polar with the solver's programs eager (``recording``), equal to it
+    bit for bit with the same launches and walk solves: its recorded
+    marches give the lanes a launch (10 of 16 side lanes and 1 of 8 wakes
+    a per-point or rescue pass, 3 of 2 and 1 of 1 a walk solve), and the
+    per-point pass's marches are held to the plain march as in phase 13 (a
     free lane whose ensemble's x_transition takes several values may land
     between them: 160 free lanes meet that knife edge where the Newton
     phases' 40 did not); the
@@ -166,8 +171,30 @@ of the reference ensemble's members with the same ``converged``:
     ``POST /upload_airfoil/`` sent to a served port while
     ``start_warmup`` runs (its thread ``solver-warmup`` alive when the
     answer comes) is answered 200 and equal to the same upload after the
-    warm-up, whose three stages logged and none failed; each key's graph
-    pool.
+    warm-up, whose four stages logged and none failed; each key's graph
+    pool. (b) counts the graphs of every program: ``warm_polar_kernels``
+    captures 15 (five programs at three keys), the polars none;
+20b. solver graphs — the solver's other programs as CUDA graphs
+    (``viscous/graphs.py``: the direct solve ``solve_viscous``, the Newton
+    set-up, round and answer), from an empty cache: each graphed equals
+    its eager body bit for bit with the same march launches, at the keys
+    the main paths replay: the direct solve at the upload's last resort
+    (1 lane, 160 panels, 80/24/24), the graft entry's (128 panels,
+    48/16/12) and a parser chunk (32 lanes, 128 panels, 64/16/16, one lane
+    an all-zero loop whose NaNs stay in it), at alpha 0 and 5; the Newton
+    programs at the default solve's lane, the polar's points pass (32
+    lanes), its walk's continuation (1 lane, 1 warm pass, a start state)
+    and its rescue (8 lanes, smoothed), 3 points a key; one capture a key,
+    none at a replay; each key's graph pool.
+
+The phases that record the marches a solve makes (``recording``: phases
+10, 12, 13, and the second runs of 17 and 22) run the solver's programs
+as their eager bodies (``eager_programs``), since a graph's replay calls
+no Python wrapper; phases 17 and 22 first run graphed, as a user does,
+and hold the eager run to that bit for bit. Every other launch count
+counts each replay's captured launches (a capture's own are not
+counted). Phase 21 captures its chunk's graph
+afresh, with its shape recorder in place, before it times the benchmark.
 
 Then the parser-robustness benchmark (``bench/parser_benchmark.py``: the
 direct solve over chunks of 32 geometry lanes at Re 2e5, alpha 5), held to
@@ -182,12 +209,13 @@ flow field:
     which one member differs from both others (with the probe's, below);
     raw, parsed, rescued and regressed within S of the nominal member's;
     the wall split into operators, lane solves and the rest;
-22. parser tripped — the first raw and parsed chunks tripped at x 0.05:
-    every lane whose three JAX members agree on the verdict and lie within
-    a tenth of each bar (CL 0.025, CD 5 %, Cm 0.01, x_tr 0.05 c; all
+22. parser tripped — the first raw and parsed chunks tripped at x 0.05,
+    graphed: every lane whose three JAX members agree on the verdict and
+    lie within a tenth of each bar (CL 0.025, CD 5 %, Cm 0.01, x_tr 0.05 c; all
     non-finite counts as agreeing) held to the nominal member at the bars
-    with its verdict, a field non-finite in both agreeing; every march
-    call of the two chunks held to the plain march as in phase 13 (each
+    with its verdict, a field non-finite in both agreeing; the same
+    chunks with the solver's programs eager equal to them bit for bit, and
+    every march call of those held to the plain march as in phase 13 (each
     lane up to where its ensemble spreads, x_transition in the ensemble or
     between its values, NaN agreeing with NaN);
 23. parser speed — one chunk's wall (operators, solve) and its profile;
@@ -284,8 +312,9 @@ lattices' largest difference from the unsharded kernel's;
 ``entry_launches``: the graft entry's; ``headline_launches``: line 2's
 runs (LBM kernels) or the polar line 1 is built from (march kernels));
 beside the kernels, ``lm_graphs``: the LM graphs' captures and replays in
-the run, phase 20a's keys, pools, iteration and solve times), and the last
-line the result (JSON). JAX is never imported, nor anything of
+the run, phase 20a's keys, pools, iteration and solve times, ``programs``:
+every program's captures and replays, ``solver_graphs``: phase 20b's
+cases and pools), and the last line the result (JSON). JAX is never imported, nor anything of
 ``airfoil_tpu``.
 """
 
@@ -1087,9 +1116,26 @@ def ensemble_stop(ens: dict, fields=("theta", "dstar", "turb", "separated"),
 
 
 @contextlib.contextmanager
+def eager_programs():
+    """The solver's programs (``viscous.graphs.run``: the direct solve, the
+    Newton set-up, round and answer) run as their eager bodies on the
+    card: every Python call in them runs, as a graph's replay does not.
+    The LM iteration stays graphed (it makes no march)."""
+    from airfoil_tpu_torch.viscous import graphs
+    orig = graphs.run
+    graphs.run = lambda program, key, body, flat: body(flat)
+    try:
+        yield
+    finally:
+        graphs.run = orig
+
+
+@contextlib.contextmanager
 def recording(mk):
     """Records (a copy of) the arguments of every ``march_side`` and
-    ``march_wake`` call that reaches the kernel module ``mk``."""
+    ``march_wake`` call that reaches the kernel module ``mk``; the
+    solver's programs run eagerly meanwhile (``eager_programs``), since a
+    graph's replay calls no Python wrapper."""
     calls = {"march_side": [], "march_wake": []}
     originals = {name: getattr(mk, name) for name in calls}
 
@@ -1103,7 +1149,8 @@ def recording(mk):
     for name in calls:
         setattr(mk, name, wrap(name))
     try:
-        yield calls
+        with eager_programs():
+            yield calls
     finally:
         for name, fn in originals.items():
             setattr(mk, name, fn)
@@ -2069,32 +2116,66 @@ def _lane_counts(calls) -> dict:
     return out
 
 
+def program_counts(graphs) -> dict:
+    """Each solver program's graph captures and replays so far."""
+    return {prog: {"captures": graphs.total(graphs.captures, prog),
+                   "replays": graphs.total(graphs.replays, prog)}
+            for prog in graphs.PROGRAMS}
+
+
+def _same_polar(a, b) -> bool:
+    """Two ``PolarResult``s equal bit for bit, field by field."""
+    return all(np.asarray(x).dtype == np.asarray(y).dtype
+               and np.asarray(x).shape == np.asarray(y).shape
+               and np.asarray(x).tobytes() == np.asarray(y).tobytes()
+               for x, y in zip(a, b))
+
+
 def phase_polar(dev, card, pgold, sweep, newton, graphs, mk, plain):
     """The main path of this slice: ``solve_polar`` of the golden polar on
-    the card, every point held to the reference's ensemble; the sweep's
-    marches (launches, lanes) and walk solves counted, the per-point pass's
-    marches held to the plain march, its profile, and the march kernels
-    at the polar path's 64 and 128 lanes. Returns (the result, its wall
-    seconds, {kernel: its launches}, {kernel: its lanes a launch}, the
-    largest difference from the plain march, timings at 64 and 128
-    lanes, the LM graphs' captures and replays in the polar)."""
+    the card as a user runs it (every solver program graphed), every point
+    held to the reference's ensemble, its marches (launches) and walk
+    solves counted; then the same polar again with the solver's programs
+    eager (``recording``), equal to it bit for bit with the same marches
+    and walk solves, whose recorded marches give the lanes a launch and
+    the per-point pass's marches held to the plain march; the pass's
+    profile, and the march kernels at the polar path's 64 and 128 lanes.
+    Returns (the graphed result, its wall seconds, {kernel: its
+    launches}, {kernel: its lanes a launch}, the largest difference from
+    the plain march, timings at 64 and 128 lanes, each program's graph
+    captures and replays in the graphed polar)."""
     g = pgold["polar"]
     coords = np.asarray(naca4_coords(*g["naca"]), np.float32)
-    mk.march_launches = 0
-    mk.wake_launches = 0
-    sweep.walk_solves.update(cont=0, trip=0)
-    counts0 = graph_counts(graphs)
-    with lm_rounds_recorded(newton) as runs, recording(mk) as calls:
+
+    def counted_polar():
+        mk.march_launches = 0
+        mk.wake_launches = 0
+        sweep.walk_solves.update(cont=0, trip=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sweep.solve_polar(coords, g["alphas"], g["re"], device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = {"bl_march": mk.march_launches,
-                "bl_march_wake": mk.wake_launches}
-    lm_graphs = dict(zip(("captures", "replays"), np.subtract(
-        graph_counts(graphs), counts0).tolist()))
-    walk = dict(sweep.walk_solves)
+        return (res, time.perf_counter() - t0,
+                {"bl_march": mk.march_launches,
+                 "bl_march_wake": mk.wake_launches}, dict(sweep.walk_solves))
+
+    counts0 = program_counts(graphs)
+    with lm_rounds_recorded(newton) as runs:
+        res, wall, launches, walk = counted_polar()
+    counts1 = program_counts(graphs)
+    solver_graphs = {prog: {k: n - counts0[prog][k] for k, n in c.items()}
+                     for prog, c in counts1.items()}
+    with recording(mk) as calls:
+        res_eager, wall_eager, launches_eager, walk_eager = counted_polar()
+    same = _same_polar(res, res_eager)
+    log(f"[polar] the same polar with the solver's programs eager (marches "
+        f"recorded): {wall_eager:.3f} s wall, march launches "
+        f"{launches_eager}, walk solves {walk_eager}; equal to the graphed "
+        f"polar bit for bit: {same} {'ok' if same else 'FAIL'}")
+    require(same and launches_eager == launches and walk_eager == walk,
+            f"the eager polar: bit-equal {same}, launches {launches_eager} "
+            f"(graphed {launches}), walk solves {walk_eager} (graphed "
+            f"{walk})")
     n_walk = walk["cont"] + walk["trip"]
     p = sweep._bucket_size(len(g["alphas"]))
     sides = _lane_counts(calls["march_side"])
@@ -2128,8 +2209,8 @@ def phase_polar(dev, card, pgold, sweep, newton, graphs, mk, plain):
         f"{walk['cont']} continuation and {walk['trip']} trip solves "
         f"(rounds {[r for _, r in runs[1:1 + n_walk]]}); rescue pass "
         f"{'run' if passes == 2 else 'not needed'}; march launches "
-        f"{launches} (side lanes a launch: {sides}; wake: {wakes}); LM "
-        f"graphs {lm_graphs}; modes "
+        f"{launches} (side lanes a launch: {sides}; wake: {wakes}); graph "
+        f"captures and replays {json.dumps(solver_graphs)}; modes "
         f"{res.mode.tolist()} {'ok' if not fails else 'FAIL ' + str(fails)}")
     require(not fails, f"polar: {fails}")
     worst, _batch = hold_recorded_marches(
@@ -2197,7 +2278,7 @@ def phase_polar(dev, card, pgold, sweep, newton, graphs, mk, plain):
             f"{at_lanes[lanes]['bl_march_wake'][0]:.4f} ms, bound "
             f"{at_lanes[lanes]['bl_march_wake'][1][0] * 1e3:.3f} us ({card})")
     lanes_of = {"bl_march": sorted(sides), "bl_march_wake": sorted(wakes)}
-    return res, wall, launches, lanes_of, worst, at_lanes, lm_graphs
+    return res, wall, launches, lanes_of, worst, at_lanes, solver_graphs
 
 
 def phase_batch(dev, pgold, polar, newton, mk):
@@ -2367,10 +2448,10 @@ def phase_newton_speed(card, dev, newton, graphs, op, mk, plain, side_call,
 
     solve()                                     # warm
     # The LM iterations are graph replays (viscous/graphs.py).
-    replays0 = sum(graphs.replays.values())
+    replays0 = graphs.total(graphs.replays, "lm")
     r = solve()
     torch.cuda.synchronize()
-    n_lm = [sum(graphs.replays.values()) - replays0]
+    n_lm = [graphs.total(graphs.replays, "lm") - replays0]
     iters = NEWTON_SHAPE["newton_iters"]
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -2487,7 +2568,9 @@ def lm_outputs(graphs):
 
 
 def graph_counts(graphs) -> tuple[int, int]:
-    return sum(graphs.captures.values()), sum(graphs.replays.values())
+    """The LM iteration's graphs captured and iterations replayed."""
+    return (graphs.total(graphs.captures, "lm"),
+            graphs.total(graphs.replays, "lm"))
 
 
 def _graph_case(dev, newton, graphs, ops, p, naca, alpha, re, stacked):
@@ -2521,7 +2604,7 @@ def lm_iteration_times(newton, graphs, system, zz, lam) -> dict:
     (median, synchronised), device time (profiler's kernel sum) and, for
     the graph, its replay by CUDA events."""
     system.run_lm(zz, lam, 1)
-    graph = graphs._GRAPHS[graphs.lm_key(system)].graph
+    graph = graphs._GRAPHS["lm", graphs.lm_key(system)].graph
     out = {"graph_wall_ms": _median_s(lambda: system.run_lm(zz, lam, 1),
                                       10) * 1e3,
            "graph_replay_ms": cuda_ms(graph.replay, 10)}
@@ -2607,11 +2690,13 @@ def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
     # the graphs (the warm starts, the verdicts): their launches counted.
     graphs._GRAPHS.clear()
     c0, _r = graph_counts(graphs)
+    all0 = graphs.total(graphs.captures)
     zero_launch_counts()
     t0 = time.perf_counter()
     sweep.warm_polar_kernels(p=32, device=dev)
     t_warm = time.perf_counter() - t0
     c1, _r = graph_counts(graphs)
+    all1 = graphs.total(graphs.captures)
     def march_counts():
         return {k: launch_counts()[k] for k in MARCH_KERNELS}
 
@@ -2620,28 +2705,36 @@ def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
     walls = {}
     for alphas in (HEADLINE_ALPHAS, SECOND_ALPHAS):
         c_a, r_a = graph_counts(graphs)
+        all_a = graphs.total(graphs.captures)
         zero_launch_counts()
         t0 = time.perf_counter()
         res = sweep.solve_polar(coords, alphas, 1e6, device=dev)
         walls[len(alphas)] = time.perf_counter() - t0
         marches[f"polar_{len(alphas)}"] = march_counts()
         c_b, r_b = graph_counts(graphs)
-        ok = (c_b == c_a and r_b > r_a and len(res.cl) == len(alphas)
+        all_b = graphs.total(graphs.captures)
+        ok = (c_b == c_a and all_b == all_a and r_b > r_a
+              and len(res.cl) == len(alphas)
               and np.isfinite(res.cl).all()
               and all(marches[f"polar_{len(alphas)}"][k] > 0
                       for k in MARCH_KERNELS))
         log(f"[graphs] (b) solve_polar of {len(alphas)} points (bucket "
             f"{sweep._bucket_size(len(alphas))}) after warm_polar_kernels("
-            f"p=32) ({t_warm:.2f} s, {c1 - c0} graphs captured, march "
-            f"launches {marches['warm_polar_kernels']}): {c_b - c_a} "
+            f"p=32) ({t_warm:.2f} s, {c1 - c0} LM graphs and "
+            f"{all1 - all0} graphs of every program captured, march "
+            f"launches {marches['warm_polar_kernels']}): {all_b - all_a} "
             f"captures, {r_b - r_a} LM iterations replayed, march launches "
             f"{marches[f'polar_{len(alphas)}']}, "
             f"{walls[len(alphas)]:.3f} s wall, modes {res.mode.tolist()} "
             f"({card}) {'ok' if ok else 'FAIL'}")
         require(ok, f"a polar of {len(alphas)} points in a warmed bucket "
-                    f"captured {c_b - c_a} graphs")
-    require(c1 - c0 == 3, f"warm_polar_kernels(p=32) captured {c1 - c0} "
-                          f"graphs, want 3 (pass, walk, rescue)")
+                    f"captured {all_b - all_a} graphs")
+    # Three keys (the pass's 32 lanes, the walk's 1, the rescue's 8), five
+    # programs at each (set-up, re-projection, LM iteration, settle,
+    # answer).
+    require(c1 - c0 == 3 and all1 - all0 == 15,
+            f"warm_polar_kernels(p=32) captured {c1 - c0} LM graphs and "
+            f"{all1 - all0} in all, want 3 (pass, walk, rescue) and 15")
 
     # (c) Three threads solve one key at once.
     op = ops["2412"]
@@ -2709,7 +2802,7 @@ def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
     stages = [m for m in msgs if "warmup done in" in m]
     ok = (warm.name == "solver-warmup" and warm.daemon and alive
           and during[0] == 200 and during == after and not failed
-          and len(stages) == 3)
+          and len(stages) == 4)
     log(f"[graphs] (d) POST /upload_airfoil/ (NACA 2412, Re "
         f"{UPLOAD_POINT[0]:g}, alpha {UPLOAD_POINT[1]:g}) while start_warmup "
         f"ran (thread '{warm.name}', alive when answered: {alive}): "
@@ -2720,11 +2813,11 @@ def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
         f"{'ok' if ok else 'FAIL'}")
     require(ok, "upload during the warm-up")
 
-    keys = {str(k[1:]): {"captures": graphs.captures.get(k, 0),
-                         "replays": graphs.replays.get(k, 0),
-                         "pool_bytes": v}
-            for k, v in graphs.pool_bytes.items()}
-    log(f"[graphs] a key ((lanes,), stations, wake, shared, panel nodes): "
+    keys = {str(k[1][1:]): {"captures": graphs.captures.get(k, 0),
+                            "replays": graphs.replays.get(k, 0),
+                            "pool_bytes": v}
+            for k, v in graphs.pool_bytes.items() if k[0] == "lm"}
+    log(f"[graphs] an LM key ((lanes,), stations, wake, shared, panel nodes): "
         f"its captures and replays in this process, its graph pool's bytes: "
         f"{json.dumps(keys)} ({card})")
     return ({"keys": keys,
@@ -2733,6 +2826,147 @@ def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
              "headline_polar_s": walls[len(HEADLINE_ALPHAS)],
              "march_launches": marches},
             walls[len(HEADLINE_ALPHAS)])
+
+
+DIRECT_ALPHAS = (0.0, 5.0)
+PASS_POINTS = ((-10.0, 20.0, 1e6), (-6.0, 18.0, 1e6), (-10.0, 20.0, 3e5))
+RESCUE_POINTS = ((-10.0, -3.0, 1e6), (10.0, 17.0, 1e6), (-2.0, 5.0, 6e5))
+SINGLE_POINTS = (("2412", 4.0, 1e6), ("0012", 2.0, 3e5), ("2412", 8.0, 1e6))
+CONT_LANES = (0, 10, 20)      # the pass's lanes the continuations start from
+
+
+def _program_captures(graphs) -> dict:
+    return {prog: c["captures"] for prog, c in program_counts(graphs).items()}
+
+
+def _program_case(graphs, fn) -> dict:
+    """``fn`` graphed, then with the solver's programs eager (the LM
+    iteration graphed in both): equal bit for bit, the captures of each
+    program, the march launches of each run, the walls."""
+    from airfoil_tpu_torch.viscous import kernel as mk
+    c0 = _program_captures(graphs)
+    l0 = (mk.march_launches, mk.wake_launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    l1 = (mk.march_launches, mk.wake_launches)
+    c1 = _program_captures(graphs)
+    with eager_programs():
+        t0 = time.perf_counter()
+        want = fn()
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+    l2 = (mk.march_launches, mk.wake_launches)
+    a, b = graphs.flatten(got)[0], graphs.flatten(want)[0]
+    return {"same": len(a) == len(b) and _same_bits(a, b),
+            "captures": {k: c1[k] - c0[k] for k in graphs.PROGRAMS
+                         if c1[k] != c0[k]},
+            "launches": [l1[0] - l0[0], l1[1] - l0[1]],
+            "eager_launches": [l2[0] - l1[0], l2[1] - l1[1]],
+            "graph_s": t_graph, "eager_s": t_eager, "out": got}
+
+
+def phase_solver_graphs(dev, card, coupled, newton, graphs, sweep, pb, ops):
+    """Phase 20b: the solver's other programs as CUDA graphs
+    (``viscous.graphs``), from an empty cache. Each program graphed equals
+    its eager body bit for bit on the card, with the same march launches,
+    at the keys the main paths replay: the direct solve at the upload's
+    last resort (1 lane, 160 panels, 80/24/24), the graft entry's (128
+    panels, 48/16/12) and the parser benchmark's chunk (32 lanes, 128
+    panels, 64/16/16, one lane an all-zero loop whose NaNs stay in it), at
+    alpha 0 and 5; the Newton set-up, round and answer at the default
+    solve's one lane, the polar's points pass (32 lanes), its walk's
+    continuation (1 lane, 1 warm pass, a start state) and its rescue (8
+    lanes, the smoothed operator), 3 points a key. One capture a key, none
+    at a replay; each key's graph pool. Returns the record for the kernel
+    line."""
+    from airfoil_tpu_torch.models import naca4
+    from airfoil_tpu_torch.inviscid import build_operator
+    from airfoil_tpu_torch.paneling import panel_geometry, repanel
+    graphs._GRAPHS.clear()
+    before = dict(graphs.captures)
+    cases, fails = {}, []
+
+    def case(label, fn, first):
+        out = _program_case(graphs, fn)
+        want_caps = out["captures"] != {} if first else out["captures"] == {}
+        ok = (out["same"] and want_caps
+              and out["launches"] == out["eager_launches"])
+        log(f"[solver graphs] {label}: graph {'==' if out['same'] else '!='} "
+            f"eager bit for bit; captures {out['captures']}; march launches "
+            f"{out['launches']} graphed, {out['eager_launches']} eager; "
+            f"{out['graph_s'] * 1e3:.3f} ms graphed"
+            f"{' (capture included)' if first else ''}, "
+            f"{out['eager_s'] * 1e3:.3f} ms eager ({card}) "
+            f"{'ok' if ok else 'FAIL'}")
+        cases[label] = {k: v for k, v in out.items() if k != "out"}
+        if not ok:
+            fails.append(label)
+        return out["out"]
+
+    # The direct solve.
+    coords60 = np.asarray(naca4(2, 4, 12, 60), np.float32)
+    op128 = build_operator(panel_geometry(*repanel(
+        torch.as_tensor(coords60, device=dev), 128)))
+    loops = ([naca4(m, 4, t, 60) for m in (0, 2, 4) for t in range(6, 36, 3)]
+             + [np.zeros((121, 2), np.float32), naca4(2, 4, 12, 60)])
+    chunk_ops = pb.chunk_operators(pb.resample(loops)[0], dev)
+    degenerate = len(loops) - 2
+    direct = (("upload's last resort", ops["2412"], 1e6, {}),
+              ("graft entry", op128, 1e6,
+               {"n_stations": 48, "n_wake": 16, "coupling_iters": 12}),
+              ("parser chunk", chunk_ops, pb.BENCH_REYNOLDS, pb.SOLVE_SHAPE))
+    for name, op, re, kw in direct:
+        for i, a in enumerate(DIRECT_ALPHAS):
+            r = case(f"direct solve, {name}, alpha {a:g}",
+                     lambda: coupled.solve_viscous(op, a, re, **kw), i == 0)
+            if name == "parser chunk":
+                finite = torch.isfinite(r.cl) & torch.isfinite(r.cd)
+                nan_lane = [j for j, f in enumerate(finite.tolist()) if not f]
+                if nan_lane != [degenerate]:
+                    fails.append(f"chunk alpha {a:g}: non-finite lanes "
+                                 f"{nan_lane}, want [{degenerate}]")
+
+    # The Newton solve.
+    for i, (code, a, re) in enumerate(SINGLE_POINTS):
+        case(f"Newton default solve, NACA {code} alpha {a:g} Re {re:g}",
+             lambda: newton.solve_viscous_newton(ops[code], a, re), i == 0)
+    coords = sweep._pad_coords(torch.as_tensor(
+        np.asarray(naca4(2, 4, 12, 95), np.float32), device=dev))
+    op_p, _xp, _yp = sweep._op_kernel(coords, 160)
+    op_s = sweep._op_kernel_smoothed(coords, 160)
+    states = None
+    for i, (lo, hi, re) in enumerate(PASS_POINTS):
+        alphas = torch.linspace(lo, hi, 32, device=dev)
+        res = torch.full((32,), re, device=dev)
+        out = case(f"points pass, 32 lanes, alpha {lo:g}..{hi:g} Re {re:g}",
+                   lambda: sweep._points_kernel(op_p, alphas, res), i == 0)
+        if states is None:
+            states = (alphas, res, out[1][1])
+    alphas, res, st = states
+    for i, j in enumerate(CONT_LANES):
+        case(f"walk continuation, 1 lane, from lane {j} to alpha "
+             f"{float(alphas[j]) + 1:g}",
+             lambda: newton.solve_polar_point_cont(
+                 op_p, alphas[j] + 1.0, res[j], *(x[j] for x in st),
+                 n_stations=NEWTON_SHAPE["n_stations"]), i == 0)
+    for i, (lo, hi, re) in enumerate(RESCUE_POINTS):
+        a8 = torch.linspace(lo, hi, 8, device=dev)
+        r8 = torch.full((8,), re, device=dev)
+        case(f"rescue, 8 lanes (smoothed), alpha {lo:g}..{hi:g} Re {re:g}",
+             lambda: sweep._rescue_kernel(op_s, a8, r8), i == 0)
+
+    new = {k: graphs.captures[k] - before.get(k, 0) for k in graphs.captures
+           if graphs.captures[k] != before.get(k, 0)}
+    keys = {f"{k[0]} {k[1][1:]}": graphs.pool_bytes[k] for k in new}
+    log(f"[solver graphs] captures a key in this phase (each 1): "
+        f"{sorted(set(new.values()))}; graph pools, bytes by program and "
+        f"key (lanes, ...): {json.dumps(keys)} ({card})")
+    require(not fails, f"solver graphs: {fails}")
+    require(set(new.values()) == {1}, f"captures a key: {new}")
+    return {"cases": cases, "pool_bytes": keys}
 
 
 def phase_mask_speed(dev, card, masks, cfg_cls, WindTunnel):
@@ -2847,6 +3081,17 @@ def phase_parser_bench(dev, card, bgold, pb, corpus, mk, work):
     mk.march_wake = shapes("wake", orig_wake)
     out_dir = os.path.join(work, "parser_benchmark")
     try:
+        # The chunk's graph (viscous.graphs) captured afresh with the shape
+        # recorder in place, on the corpus's first chunk, before the counts
+        # are set to 0 and the clock starts: a replay calls no Python
+        # wrapper, and launches the shapes of its capture.
+        from airfoil_tpu_torch.viscous import graphs
+        for key in [k for k in graphs._GRAPHS
+                    if k[0] == "direct" and k[1][1] == (pb.CHUNK,)]:
+            del graphs._GRAPHS[key]
+        first = [np.asarray(g) if len(g) >= 5 else None
+                 for g in map(pb.raw_coords_from_file, files[:pb.CHUNK])]
+        orig_solve(orig_ops(pb.resample(first)[0], dev))
         mk.march_launches = mk.wake_launches = 0
         t0 = time.perf_counter()
         summary = pb.run_benchmark(files, out_dir, device=dev)
@@ -2951,12 +3196,15 @@ def _held_lane(rec: dict, ref: dict, i: int) -> list:
 
 def phase_parser_tripped(dev, card, bgold, pb, mk, plain, files):
     """The benchmark's first raw and first parsed chunk tripped at the
-    golden's x: every spread-free lane held to the nominal member at
-    VISCOUS_BARS with its verdict; every march call of the two chunks held
-    to the plain march (``hold_recorded_marches``, NaN agreeing with NaN).
+    golden's x, graphed as the benchmark solves them: every spread-free
+    lane held to the nominal member at VISCOUS_BARS with its verdict; the
+    same chunks with the solver's programs eager equal to them bit for
+    bit, and every march call of those held to the plain march
+    (``hold_recorded_marches``, NaN agreeing with NaN).
     Returns ({kernel: largest abs difference}, one side call, one wake
     call)."""
     from airfoil_tpu_torch.geometry import AirfoilParseError, parse_dat_file
+    from airfoil_tpu_torch.viscous import graphs
     first = files[:pb.CHUNK]
     raw = [np.asarray(g) if len(g) >= 5 else None
            for g in map(pb.raw_coords_from_file, first)]
@@ -2967,13 +3215,25 @@ def phase_parser_tripped(dev, card, bgold, pb, mk, plain, files):
         except AirfoilParseError:
             parsed.append(None)
     trip = bgold["trip_x"]
-    recs = {}
+    ops = {p: pb.chunk_operators(pb.resample(geoms)[0], dev)
+           for p, geoms in zip(BENCH_PATHS, (raw, parsed))}
+    recs, graphed = {}, {}
+    for p in BENCH_PATHS:
+        graphed[p] = pb.solve_chunk(ops[p], x_forced_transition=trip)
+        recs[p] = bench_records(graphed[p], pb.plausible(graphed[p]))
+    # The same chunks with the solver's programs eager, their marches
+    # recorded: equal to the graphed chunks bit for bit.
     with recording(mk) as calls:
-        for p, geoms in zip(BENCH_PATHS, (raw, parsed)):
-            chunk = pb.resample(geoms)[0]
-            r = pb.solve_chunk(pb.chunk_operators(chunk, dev),
-                               x_forced_transition=trip)
-            recs[p] = bench_records(r, pb.plausible(r))
+        eager = {p: pb.solve_chunk(ops[p], x_forced_transition=trip)
+                 for p in BENCH_PATHS}
+    flat = {p: (graphs.flatten(graphed[p])[0], graphs.flatten(eager[p])[0])
+            for p in BENCH_PATHS}
+    same = {p: len(a) == len(b) and _same_bits(a, b)
+            for p, (a, b) in flat.items()}
+    log(f"[parser tripped] the chunks graphed equal the same chunks with the "
+        f"solver's programs eager (marches recorded) bit for bit: {same} "
+        f"{'ok' if all(same.values()) else 'FAIL'}")
+    require(all(same.values()), f"tripped chunks graphed != eager: {same}")
     held = spread = 0
     bad = []
     for p in BENCH_PATHS:
@@ -3613,7 +3873,7 @@ def phase_headline(dev, card, headline, profiling, kernel, core, masks,
     modes = np.asarray(polar_res.mode)
     polar = dict(headline.polar_stats(polar_res, polar_wall), reps=1,
                  warmup_seconds=None, launches=polar_launches,
-                 lm_graphs=polar_graphs)
+                 lm_graphs=polar_graphs["lm"], solver_graphs=polar_graphs)
     line1 = headline.polar_record(polar, dev, card)
     want_modes = {"viscous": int(np.sum(modes == 0)),
                   "viscous_smoothed": int(np.sum(modes == 1)),
@@ -3818,6 +4078,12 @@ def run(run_log_dir: str, work: str) -> int:
                                              ops)
     log(f"[graphs] the graphs phase took "
         f"{time.perf_counter() - t_graphs:.1f} s")
+    from airfoil_tpu_torch.bench import parser_benchmark as pb
+    t_graphs = time.perf_counter()
+    solver_graphs = phase_solver_graphs(dev, card, coupled, newton, graphs,
+                                        sweep, pb, ops)
+    log(f"[solver graphs] the solver graphs phase took "
+        f"{time.perf_counter() - t_graphs:.1f} s")
     newton_keys = {name: {
         "newton_launches": newton_launches[name],
         "newton_max_abs_err": newton_abs[name],
@@ -3841,7 +4107,6 @@ def run(run_log_dir: str, work: str) -> int:
     # flow field.
     from airfoil_tpu_torch.bench import corpus as bench_corpus
     from airfoil_tpu_torch.bench import paneling_probe
-    from airfoil_tpu_torch.bench import parser_benchmark as pb
     from airfoil_tpu_torch.geometry import parse_dat_file
     from airfoil_tpu_torch.inviscid import flowfield
     from airfoil_tpu_torch.models import naca4
@@ -3941,9 +4206,13 @@ def run(run_log_dir: str, work: str) -> int:
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": None, **newton_keys.get(name, {})}
         for name, (source, replaces) in KERNELS.items()],
-        "lm_graphs": dict(lm_graphs,
-                          captures=sum(graphs.captures.values()),
-                          replays=sum(graphs.replays.values()))}))
+        "lm_graphs": dict(
+            lm_graphs, captures=graphs.total(graphs.captures, "lm"),
+            replays=graphs.total(graphs.replays, "lm"),
+            programs={prog: {"captures": graphs.total(graphs.captures, prog),
+                             "replays": graphs.total(graphs.replays, prog)}
+                      for prog in graphs.PROGRAMS},
+            solver_graphs=solver_graphs)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

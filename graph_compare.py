@@ -1,5 +1,5 @@
-"""The Newton solve of this checkout against an older tree of the port, on
-one GPU: ``python3 graph_compare.py OLD_TREE [OUT_JSON]``.
+"""The solvers of this checkout against an older tree of the port, on one
+GPU: ``python3 graph_compare.py OLD_TREE [OUT_JSON]``.
 
 ``OLD_TREE`` is a directory holding an older ``airfoil_tpu_torch`` package,
 for example the parent commit's::
@@ -23,7 +23,17 @@ trees have:
 3. the golden polar (NACA 2412, 80 points a side, alpha -2..6 step 2, Re
    1e6) and the headline's polar (100 points a side, alpha -10..20 step 1):
    each once, after ``warm_polar_kernels`` of its bucket where the tree
-   has it (as ``bench.py`` warms before it times); the polar's modes.
+   has it (as ``bench.py`` warms before it times); the polar's modes;
+4. the default direct solve ``solve_viscous`` at that point (one lane,
+   160 panels, 80/24/24): one warm solve, then the median of 10, and its
+   CL, CD and ``converged``;
+5. the graft entry's ``fn`` (``graft_entry.entry()``: repanel to 128
+   panels, the operator, the direct solve at 48/16/12): one warm call, then
+   the median of 10, and its [cl, cd, cm];
+6. the parser benchmark (``bench.parser_benchmark.run_benchmark``) over
+   the 500-file synthetic corpus (seed 0), once, as its CLI runs it (the
+   first chunk captures the tree's graph where it has one): its wall and
+   its raw, parsed, rescued and regressed counts.
 
 Prints the card's name and power limit first, then one JSON line a child
 run, then the medians of each tree; writes them all to ``OUT_JSON`` where
@@ -37,6 +47,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -108,11 +119,44 @@ def child(tree: str) -> dict:
                                 1e6, device=dev)
         out[f"{name}_polar_s"] = time.perf_counter() - t0
         out[f"{name}_modes"] = np.asarray(res.mode).tolist()
+
+    from airfoil_tpu_torch import graft_entry
+    from airfoil_tpu_torch.bench import corpus, parser_benchmark
+    from airfoil_tpu_torch.viscous import coupled
+
+    r = coupled.solve_viscous(op, alpha, re)
+    out["solve_viscous_ms"] = _wall(
+        lambda: coupled.solve_viscous(op, alpha, re), 10) * 1e3
+    out["solve_viscous_result"] = [float(r.cl), float(r.cd),
+                                   bool(r.converged)]
+    fn, args = graft_entry.entry(dev)
+    out["graft_entry_result"] = fn(*args).tolist()
+    out["graft_entry_ms"] = _wall(lambda: fn(*args), 10) * 1e3
+    with tempfile.TemporaryDirectory() as work:
+        files = corpus.generate_corpus(os.path.join(work, "corpus"), n=500,
+                                       seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = parser_benchmark.run_benchmark(
+            files, os.path.join(work, "out"), device=dev)
+        torch.cuda.synchronize()
+        out["parser_benchmark_s"] = time.perf_counter() - t0
+    out["parser_benchmark_counts"] = [summary[k] for k in (
+        "raw_converged", "parsed_converged", "rescued", "regressed")]
     if graphs is not None:
-        out["captures"] = sum(graphs.captures.values())
-        out["replays"] = sum(graphs.replays.values())
-        out["pool_bytes"] = {str(k[1:]): v
-                             for k, v in graphs.pool_bytes.items()}
+        keys = list(graphs.captures)
+        if hasattr(graphs, "total"):      # keyed by (program, key)
+            out["captures"] = {prog: graphs.total(graphs.captures, prog)
+                               for prog in sorted({k[0] for k in keys})}
+            out["replays"] = {prog: graphs.total(graphs.replays, prog)
+                              for prog in sorted({k[0] for k in keys})}
+            out["pool_bytes"] = {f"{k[0]} {k[1][1:]}": v
+                                 for k, v in graphs.pool_bytes.items()}
+        else:
+            out["captures"] = sum(graphs.captures.values())
+            out["replays"] = sum(graphs.replays.values())
+            out["pool_bytes"] = {str(k[1:]): v
+                                 for k, v in graphs.pool_bytes.items()}
     return out
 
 

@@ -13,8 +13,16 @@ headline bench's warm-up, each against what the reference does.
   coordinates), one continuation solve from the pass's first lane, the
   smoothed rescue over min(8, bucket) lanes; none with ``rescue=False``.
 - ``start_warmup`` starts a daemon thread named ``solver-warmup`` that
-  runs the three stages in order (monkeypatched) on the given device, and
+  runs the four stages in order (monkeypatched) on the given device, and
   logs a failing stage without raising.
+- The solver programs of ``viscous.graphs`` (the direct solve, the
+  Newton set-up, round and answer, the LM iteration): ``warm_polar_kernels``
+  calls each Newton program at the keys of the bucket's pass, walk and
+  rescue, and a polar of that bucket afterwards reaches no other key;
+  ``analyze.warm_direct_solve`` (``start_warmup``'s last stage) calls the
+  direct solve at the key of the analysis's last resort. The marches are
+  stand-ins and the LM iterations leave the state as it is: the keys
+  depend on shapes alone.
 - ``minihttp.serve`` starts the warm-up on its device before it serves
   (``serve_forever`` stubbed).
 - ``bench_polar`` calls ``warm_polar_kernels`` (the 32 bucket; the point
@@ -25,6 +33,7 @@ headline bench's warm-up, each against what the reference does.
 import inspect
 import logging
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -37,6 +46,8 @@ from airfoil_tpu_torch.bench import headline
 from airfoil_tpu_torch.models import naca4
 from airfoil_tpu_torch.polar import analyze, sweep
 from airfoil_tpu_torch.utils import compile_cache
+from airfoil_tpu_torch.viscous import graphs, march
+from airfoil_tpu_torch.viscous import kernel as march_kernel
 
 
 def test_host_fingerprint_is_the_reference():
@@ -154,6 +165,8 @@ def stages(monkeypatch):
                       alpha, device))
 
     monkeypatch.setattr(analyze, "analyze_airfoil", analyze_airfoil)
+    monkeypatch.setattr(analyze, "warm_direct_solve",
+                        lambda **kw: calls.append(("direct", kw)))
     return calls
 
 
@@ -163,9 +176,10 @@ def test_start_warmup_runs_the_stages_in_order(stages):
     assert t.name == "solver-warmup" and t.daemon
     t.join(timeout=60)
     assert not t.is_alive()
-    assert [c[0] for c in stages] == ["cache", "polar", "analyze"]
+    assert [c[0] for c in stages] == ["cache", "polar", "analyze", "direct"]
     assert stages[1][1] == {"p": 32, "device": "cpu"}
     assert stages[2][1:] == (naca4(2, 4, 12, 60).tolist(), 1e6, 14.0, "cpu")
+    assert stages[3][1] == {"device": "cpu"}
 
 
 def test_start_warmup_logs_a_failure(stages, monkeypatch, caplog):
@@ -225,3 +239,84 @@ def test_bench_polar_warms_before_its_warm_polar(monkeypatch, reduced):
                      ("polar", n), ("polar", n)]
     assert set(got["warmup_seconds"]) == {"warm_polar_kernels", "polar"}
     assert got["lm_graphs"] == {"captures": 0, "replays": 0}
+    assert got["solver_graphs"] == {prog: {"captures": 0, "replays": 0}
+                                    for prog in graphs.PROGRAMS}
+
+
+def _side_stand_in(s, ue, x, nu, n_crit=9.0, x_forced_transition=1.0):
+    """A side march's stand-in (every lane laminar, no transition)."""
+    one, (s2, ue2, x2) = march._as_lanes(s, ue, x)
+    theta = 1e-4 * (1.0 + s2) * (1.0 + 0.1 * ue2)
+    false = torch.zeros_like(s2, dtype=torch.bool)
+    bl = march.BLState(theta, 2.2 * theta, torch.full_like(s2, 2.2),
+                       1e-3 * ue2, torch.zeros_like(s2),
+                       torch.full_like(s2, torch.nan), false, false,
+                       x2[:, -1].clone())
+    return march.BLState(*(a[0] for a in bl)) if one else bl
+
+
+def _wake_stand_in(s, ue, nu, theta0, dstar0, ctau0):
+    one, (s2, ue2) = march._as_lanes(s, ue)
+    theta = march._lanes(theta0, s2)[:, None] * (1.0 + 0.1 * s2)
+    out = (theta, 1.5 * theta, torch.full_like(s2, 1.5))
+    return tuple(a[0] for a in out) if one else out
+
+
+@pytest.fixture
+def program_keys(monkeypatch):
+    """Every (program, key) that reaches ``viscous.graphs``, with stand-in
+    marches and LM iterations that leave the state as it is."""
+    seen = []
+    run = graphs.run
+
+    def record(program, key, body, flat):
+        seen.append((program, key))
+        return run(program, key, body, flat)
+
+    def lm(key, body, flat, iters):
+        seen.append(("lm", key))
+        return flat[0], flat[1]
+
+    monkeypatch.setattr(graphs, "run", record)
+    monkeypatch.setattr(graphs, "run_lm", lm)
+    monkeypatch.setattr(march_kernel, "march_side", _side_stand_in)
+    monkeypatch.setattr(march_kernel, "march_wake", _wake_stand_in)
+    return seen
+
+
+def test_warm_polar_kernels_reaches_every_key_of_the_polar(program_keys,
+                                                            monkeypatch):
+    monkeypatch.setattr(sweep, "_N_STATIONS", 16)
+    sweep.warm_polar_kernels(p=5, device="cpu")
+    warmed = set(program_keys)
+    programs = ("prepare", "reproject", "lm", "settle", "answer")
+    per = {prog: {k for p, k in warmed if p == prog} for prog in programs}
+    # The pass (8 lanes, 8 warm passes), the walk's continuation (1 lane,
+    # 1 warm pass, a start state), the rescue (min(8, 8) lanes): three
+    # set-ups; the rescue's round and answer keys are the pass's.
+    assert {(k[1], k[6], k[7]) for k in per["prepare"]} == {
+        ((8,), 8, False), ((1,), 1, True)}
+    assert len([k for p, k in program_keys if p == "prepare"]) == 3
+    for prog in programs[1:]:
+        assert {k[1] for k in per[prog]} == {(8,), (1,)}
+    program_keys.clear()
+    sweep.solve_polar(naca4(2, 4, 12, 80), [-2.0, 0.0, 2.0, 4.0, 6.0], 1e6,
+                      device="cpu")
+    assert program_keys and set(program_keys) <= warmed
+
+
+def test_warm_direct_solve_reaches_the_last_resort_key(program_keys,
+                                                       monkeypatch):
+    analyze.warm_direct_solve(device="cpu")
+    warmed = [k for k in program_keys if k[0] == "direct"]
+    assert len(warmed) == 1
+    program_keys.clear()
+    no = torch.tensor(False)
+    # Both Newton strategies flag a wrong basin: the direct solve answers.
+    monkeypatch.setattr(analyze, "solve_viscous_newton",
+                        lambda *a, **kw: SimpleNamespace(converged=no))
+    monkeypatch.setattr(analyze, "solve_polar_point",
+                        lambda *a, **kw: (None, (no, None)))
+    analyze.analyze_airfoil(naca4(0, 0, 12, 80), reynolds=3e5, alpha=7.0,
+                            device="cpu")
+    assert [k for k in program_keys if k[0] == "direct"][0] == warmed[0]

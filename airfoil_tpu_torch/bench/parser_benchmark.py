@@ -45,8 +45,7 @@ import torch
 from airfoil_tpu_torch.device import resolve_device
 from airfoil_tpu_torch.geometry import parse_dat_file, AirfoilParseError
 from airfoil_tpu_torch.geometry.multielement import is_multi_element
-from airfoil_tpu_torch.inviscid import build_operator
-from airfoil_tpu_torch.paneling import panel_geometry, repanel
+from airfoil_tpu_torch.inviscid.programs import operator_program
 from airfoil_tpu_torch.viscous import solve_viscous
 
 __all__ = ["run_benchmark", "raw_coords_from_file"]
@@ -115,9 +114,10 @@ def chunks(batch_arr: np.ndarray):
 
 
 def chunk_operators(chunk: np.ndarray, device):
-    """The chunk's inviscid operators, one lane a geometry."""
-    coords = torch.as_tensor(chunk, device=device)
-    return build_operator(panel_geometry(*repanel(coords, N_PANELS)))
+    """The chunk's inviscid operators, one lane a geometry (the program
+    ``"operator"`` at the chunk's key)."""
+    return operator_program(torch.as_tensor(chunk, device=device),
+                            N_PANELS)[0]
 
 
 def solve_chunk(ops, reynolds=BENCH_REYNOLDS, x_forced_transition=1.0):

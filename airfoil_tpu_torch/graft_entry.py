@@ -29,16 +29,14 @@ __all__ = ["dryrun_multichip", "entry"]
 def entry(device=None):
     """(fn, example_args) of one coupled viscous solve on ``device``
     (``resolve_device``: ``cuda`` unless the caller asks for the CPU)."""
-    from airfoil_tpu_torch.inviscid import build_operator
+    from airfoil_tpu_torch.inviscid.programs import operator_program
     from airfoil_tpu_torch.models import naca4
-    from airfoil_tpu_torch.paneling import panel_geometry, repanel
     from airfoil_tpu_torch.viscous import solve_viscous
 
     dev = resolve_device(device)
 
     def fn(coords, alpha, reynolds):
-        xp, yp = repanel(coords, 128)
-        op = build_operator(panel_geometry(xp, yp))
+        op, _xp, _yp = operator_program(coords, 128)
         res = solve_viscous(op, alpha, reynolds,
                             n_stations=48, n_wake=16, coupling_iters=12)
         return torch.stack([res.cl, res.cd, res.cm])

@@ -23,9 +23,9 @@ import torch
 from airfoil_tpu_torch.device import resolve_device
 from airfoil_tpu_torch.inviscid.panel_solver import (
     build_operator,
-    solve_inviscid,
     velocity_at_points,
 )
+from airfoil_tpu_torch.inviscid.programs import inviscid_program
 from airfoil_tpu_torch.paneling import panel_geometry, repanel
 
 __all__ = ["FlowField", "compute_flow_field", "points_in_loop"]
@@ -111,7 +111,7 @@ def compute_flow_field(
     # the CPU's, and the field near the surface, which turns on them, too.
     xp, yp = repanel(coords[None].astype(np.float32), n_panels, device=dev)
     op = build_operator(panel_geometry(xp[0], yp[0]))
-    sol = solve_inviscid(op, float(alpha_deg))
+    sol = inviscid_program(op, float(alpha_deg))
 
     chord = coords[:, 0].max() - coords[:, 0].min()
     pad = 0.60 * chord

@@ -38,8 +38,11 @@ __all__ = [
     "InviscidOperator",
     "InviscidSolution",
     "build_operator",
+    "factor",
+    "influence",
     "lane_mm",
     "operator_from_numpy",
+    "sensitivities",
     "solve_inviscid",
     "velocity_at_points",
 ]
@@ -200,7 +203,18 @@ def _refined_solve(a_full, lu, piv, rhs, steps: int = 2):
 
 def build_operator(pan: Paneling) -> InviscidOperator:
     """Build and factorise the influence operator for a paneling (for each
-    lane of one)."""
+    lane of one): the influence fill, the LU factor, then the source
+    sensitivities through the factor."""
+    op = influence(pan)
+    lu, piv = factor(op.a_full)
+    ginf, due = sensitivities(op.a_full, lu, piv, op.bn, op.at_full, op.bt)
+    return op._replace(lu=lu, piv=piv, due_dsigma=due, dgamma_dsigma=ginf)
+
+
+def influence(pan: Paneling) -> InviscidOperator:
+    """The operator's influence matrices of a paneling: every field but
+    ``lu``, ``piv``, ``due_dsigma`` and ``dgamma_dsigma``, which are None
+    (``factor``, then ``sensitivities``, fill them in)."""
     n = pan.xm.shape[-1]
     dev = pan.xm.device
     self_mask = torch.eye(n, dtype=torch.bool, device=dev)
@@ -245,10 +259,13 @@ def build_operator(pan: Paneling) -> InviscidOperator:
                       pan.yp[..., :1] - pan.yp[..., -1:])
     t = clip((gap - 1e-4) / 9e-4, 0.0, 1.0)
     w_sharp = 1.0 - t * t * (3.0 - 2.0 * t)         # (..., 1)
+    # Entries are set by ``fill_`` (a kernel), never by assigning a Python
+    # number, which copies it from the host: a graph cannot capture that.
     ex_u = an.new_zeros(n + 1)
-    ex_u[0], ex_u[1], ex_u[2] = 1.0, -2.0, 1.0
     ex_l = an.new_zeros(n + 1)
-    ex_l[n], ex_l[n - 1], ex_l[n - 2] = 1.0, -2.0, 1.0
+    for j, c in enumerate((1.0, -2.0, 1.0)):
+        ex_u[j].fill_(c)
+        ex_l[n - j].fill_(c)
     an[..., 0, :] = an[..., 0, :] * (1.0 - w_sharp) + w_sharp * ex_u
     an[..., n - 1, :] = (an[..., n - 1, :] * (1.0 - w_sharp)
                          + w_sharp * ex_l)
@@ -262,29 +279,38 @@ def build_operator(pan: Paneling) -> InviscidOperator:
     a_full = an.new_zeros((*an.shape[:-2], n + 1, n + 1))
     a_full[..., :n, :] = an
     # Kutta: gamma at the two trailing-edge nodes cancel.
-    a_full[..., n, 0] = 1.0
-    a_full[..., n, n] = 1.0
-
-    # ``_ex``: a singular (degenerate) lane gives NaNs, no error and no
-    # host read. A matrix with a NaN entry factors to NaN, as in JAX (a
-    # batched LU on the card leaves part of such a factor finite, and the
-    # solves would then run on it).
-    lu, piv, _info = torch.linalg.lu_factor_ex(a_full)
-    lu = torch.where(torch.isnan(a_full).any(-1).any(-1)[..., None, None],
-                     torch.nan, lu)
+    a_full[..., n, 0].fill_(1.0)
+    a_full[..., n, n].fill_(1.0)
 
     at_full = _gamma_columns(at_a, at_b)              # (N, N+1)
     at_full[..., :, 0] += at_te
     at_full[..., :, n] -= at_te
+    return InviscidOperator(pan, a_full, None, None, bn, at_a, at_b, bt,
+                            None, None, at_full, rhs_scale)
 
-    # Edge-velocity sensitivity to transpiration sources:
-    #   Vt(sigma) = Vt0 + (At A^-1 (-Bn) + Bt) sigma
-    rhs = torch.cat([-bn, bn.new_zeros((*bn.shape[:-2], 1, n))], dim=-2)
+
+def factor(a_full: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.lu_factor_ex`` of the influence matrix (of each lane):
+    (lu, piv). ``_ex``: a singular (degenerate) lane gives NaNs, no error
+    and no host read. A matrix with a NaN entry factors to NaN, as in JAX
+    (a batched LU on the card leaves part of such a factor finite, and the
+    solves would then run on it)."""
+    lu, piv, _info = torch.linalg.lu_factor_ex(a_full)
+    lu = torch.where(torch.isnan(a_full).any(-1).any(-1)[..., None, None],
+                     torch.nan, lu)
+    return lu, piv
+
+
+def sensitivities(a_full, lu, piv, bn, at_full, bt
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dgamma_dsigma, due_dsigma): the vortex strengths' and the edge
+    velocity's sensitivity to transpiration sources, through the factor
+    (lu, piv) of ``a_full``:
+    ``Vt(sigma) = Vt0 + (At A^-1 (-Bn) + Bt) sigma``."""
+    rhs = torch.cat([-bn, bn.new_zeros((*bn.shape[:-2], 1, bn.shape[-1]))],
+                    dim=-2)
     ginf = _refined_solve(a_full, lu, piv, rhs)       # (N+1, N)
-    due_dsigma = lane_mm(at_full, ginf) + bt
-
-    return InviscidOperator(pan, a_full, lu, piv, bn, at_a, at_b, bt,
-                            due_dsigma, ginf, at_full, rhs_scale)
+    return ginf, lane_mm(at_full, ginf) + bt
 
 
 def operator_from_numpy(fields: Mapping, device=None) -> InviscidOperator:

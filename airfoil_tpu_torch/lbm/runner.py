@@ -3,7 +3,8 @@
 Port of ``airfoil_tpu/lbm/runner.py`` with an explicit ``device``. A frame
 is one ``lbm_steps`` or ``lbm_steps_tiled`` call (one CUDA kernel launch on
 a CUDA device; the plain torch step on the CPU) followed by the
-force/separation reductions and the render fields. The lattice stays on
+force/separation reductions and the render fields (``frame_fields``: one
+CUDA graph replay a frame on the card). The lattice stays on
 the device; only three scalars are read back per frame, and the fields are
 tensors until the API layer converts them. The static cell word the
 kernels read is built with the mask, at ``reset``, ``set_alpha`` and
@@ -20,7 +21,7 @@ import torch
 from airfoil_tpu_torch.config import LBMConfig, DEFAULT_LBM
 from airfoil_tpu_torch.device import DTYPE, resolve_device
 from airfoil_tpu_torch.lbm.core import equilibrium_init
-from airfoil_tpu_torch.lbm.diagnostics import forces_and_separation, render_fields
+from airfoil_tpu_torch.lbm.diagnostics import frame_fields
 from airfoil_tpu_torch.lbm.kernel import (cell_word, device_limits,
                                           lbm_steps, lbm_steps_tiled,
                                           prefers_tiled)
@@ -129,7 +130,7 @@ class WindTunnel:
                     word=st.word)
         st.step_count += steps
 
-        cl, cd, sep = forces_and_separation(
+        cl, cd, sep, speed, cp, vort, ux, uy = frame_fields(
             st.f, st.solid, st.u0, self.cfg.chord_cells)
         cl, cd, sep = torch.stack([cl, cd, sep]).tolist()
         self.cl_smooth = cl if self.cl_smooth is None else \
@@ -137,8 +138,6 @@ class WindTunnel:
         self.cd_smooth = cd if self.cd_smooth is None else \
             0.9 * self.cd_smooth + 0.1 * cd
         self.sep_smooth = 0.85 * self.sep_smooth + 0.15 * sep
-
-        speed, cp, vort, ux, uy = render_fields(st.f, st.solid, st.u0)
         return {
             "cl": self.cl_smooth,
             "cd": max(self.cd_smooth, 0.0),

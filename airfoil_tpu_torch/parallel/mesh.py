@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from airfoil_tpu_torch.device import DTYPE, resolve_device
-from airfoil_tpu_torch.inviscid import solve_inviscid
+from airfoil_tpu_torch.inviscid.programs import inviscid_program
 from airfoil_tpu_torch.polar.sweep import (
     _N_STATIONS,
     MODE_INVISCID,
@@ -227,7 +227,7 @@ def _local_walk(op, alphas, reynolds, m1, nok1, st1):
 
     # The inviscid fill before the walk: the deficit audit compares every
     # accepted CL against its point's inviscid CL.
-    sol = solve_inviscid(op, alphas)
+    sol = inviscid_program(op, alphas)
     cl3, cm3 = sol.cl, sol.cm
     cli_seq = both(cl3)
 

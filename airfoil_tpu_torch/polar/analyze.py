@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from airfoil_tpu_torch.device import resolve_device
-from airfoil_tpu_torch.inviscid import build_operator, solve_inviscid
+from airfoil_tpu_torch.inviscid import build_operator
+from airfoil_tpu_torch.inviscid.programs import inviscid_program
 from airfoil_tpu_torch.paneling import panel_geometry, repanel, smooth_geometry
 from airfoil_tpu_torch.viscous.coupled import SideBL, ViscousResult
 from airfoil_tpu_torch.viscous.coupled import solve_viscous
@@ -190,7 +191,7 @@ def analyze_airfoil(
             )
 
     # Strategy 3: inviscid fallback (no BL data; reference main.py:315-323).
-    sol = solve_inviscid(op, float(alpha))
+    sol = inviscid_program(op, float(alpha))
     return AnalysisResult(
         cp_x=cp_x_of(op),
         cp_values=[float(v) for v in _host(sol.cp)],

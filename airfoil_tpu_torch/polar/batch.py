@@ -13,8 +13,7 @@ import numpy as np
 import torch
 
 from airfoil_tpu_torch.device import resolve_device
-from airfoil_tpu_torch.inviscid import build_operator
-from airfoil_tpu_torch.paneling import panel_geometry, repanel
+from airfoil_tpu_torch.inviscid.programs import operator_program
 from airfoil_tpu_torch.viscous.newton import solve_polar_points
 
 __all__ = ["BatchResult", "solve_batch"]
@@ -36,7 +35,10 @@ class BatchResult(NamedTuple):
 def _batch_ops(coords_list, n_panels: int, dev) -> list:
     """One inviscid operator a loop on ``dev``; ragged loops are first
     resampled on the host to the first loop's point count, as the
-    reference does, then each repanels to ``n_panels``."""
+    reference does, then each repanels to ``n_panels``. Each loop is
+    built alone (the program ``"operator"`` at one loop's key): lanes
+    accumulate their arc length otherwise than one loop does
+    (``paneling.panel._arc_length``)."""
     fixed = []
     for c in coords_list:
         c = np.asarray(c, np.float32)
@@ -49,8 +51,7 @@ def _batch_ops(coords_list, n_panels: int, dev) -> list:
         fixed.append(c)
     coords_b = torch.as_tensor(np.stack(fixed).astype(np.float32),
                                device=dev)
-    return [build_operator(panel_geometry(*repanel(c, n_panels)))
-            for c in coords_b]
+    return [operator_program(c, n_panels)[0] for c in coords_b]
 
 
 def solve_batch(coords_list, reynolds: float, alpha: float,

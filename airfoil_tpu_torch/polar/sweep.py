@@ -20,9 +20,10 @@ A polar is a hybrid parallel/sequential pipeline:
 
 The audits, the carry and the selection are the reference's, decision for
 decision; see its module for why each band and gate is what it is.
-``warm_polar_kernels`` builds the march kernel and captures the Newton
-solve's CUDA graphs of a point-count bucket before the first request,
-where the reference compiles its jitted pipeline.
+``warm_polar_kernels`` builds the march kernel and captures the polar's
+CUDA graphs (the operator build, the Newton solve's, the walk's inviscid
+fill) of a point-count bucket before the first request, where the
+reference compiles its jitted pipeline.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ import torch
 
 from airfoil_tpu_torch import numerics as nm
 from airfoil_tpu_torch.device import DTYPE, resolve_device
-from airfoil_tpu_torch.inviscid import build_operator, solve_inviscid
+from airfoil_tpu_torch.inviscid.programs import (inviscid_program,
+                                                 operator_program)
 from airfoil_tpu_torch.models import naca4
-from airfoil_tpu_torch.paneling import panel_geometry, repanel, smooth_geometry
 from airfoil_tpu_torch.viscous.newton import (
     solve_polar_point_cont,
     solve_polar_points,
@@ -248,16 +249,13 @@ def _walk(op, a_seq, re_seq, active, seg_start, cli_seq, slack_seq,
 
 def _op_kernel(coords, n_panels=160):
     """Repanel + inviscid operator build (shared by the pass and the
-    walk)."""
-    xp, yp = repanel(coords, n_panels)
-    return build_operator(panel_geometry(xp, yp)), xp, yp
+    walk): the program ``"operator"``."""
+    return operator_program(coords, n_panels)
 
 
 def _op_kernel_smoothed(coords, n_panels=160):
     """Operator on the smoothed geometry (reference Strategy 2)."""
-    xp, yp = repanel(coords, n_panels)
-    xs, ys = smooth_geometry(xp, yp)
-    return build_operator(panel_geometry(xs, ys))
+    return operator_program(coords, n_panels, smooth=True)[0]
 
 
 def _points_kernel(op, alphas, reynolds):
@@ -309,7 +307,7 @@ def _walk_kernel(op, alphas, reynolds, m1, nok1, st1):
 
     # Inviscid per-point fill (Strategy 3), before the walk: the deficit
     # audit compares every accepted CL against the point's inviscid CL.
-    sol = solve_inviscid(op, alphas)
+    sol = inviscid_program(op, alphas)
     cl3, cm3 = sol.cl, sol.cm
     cli_seq = both(cl3[order])
 
@@ -424,39 +422,56 @@ def _pad_coords(coords: torch.Tensor) -> torch.Tensor:
     return torch.cat([coords, tail])
 
 
+def _naca_loop(n_coords: int, dev) -> torch.Tensor:
+    """NACA 2412 with about ``n_coords`` points, padded to its bucket."""
+    return _pad_coords(torch.as_tensor(
+        np.asarray(naca4(2, 4, 12, (n_coords - 1) // 2), np.float32),
+        device=dev))
+
+
 def warm_polar_kernels(p: int = 32, n_coords: int = 192,
                        n_panels: int = 160, rescue: bool = True,
                        device=None) -> None:
-    """Build the march kernel and capture the Newton solve's graphs (the
-    lanes' set-up and warm start, a round's re-projection, LM iteration
-    and bookkeeping, the answer; ``viscous.graphs``) of every shape key a
-    polar of ``p`` points solves at, so that the first real
-    ``solve_polar`` in that bucket captures nothing.
+    """Build the march kernel and capture the polar's graphs
+    (``viscous.graphs``: the operator build, the Newton solve's set-up and
+    warm start, a round's re-projection, LM iteration and bookkeeping, its
+    answer, and the walk's inviscid fill) of every shape key a polar of
+    ``p`` points solves at, so that the first real ``solve_polar`` in that
+    bucket captures nothing.
 
     Dummy inputs at the served shapes, as the reference's: NACA 2412 with
     ``n_coords`` points, alphas over -10..20 at Re 1e6, ``p`` rounded up
-    to its bucket (``solve_polar`` pads to it); the per-point pass (one
-    lane a point), one continuation solve from the pass's first lane (the
-    walk's one-lane key) and, with ``rescue``, the smoothed rescue
-    (min(8, bucket) lanes). One after another: the reference's threads
-    overlap XLA compiles, which the port does not have. On ``device``
-    (see ``resolve_device``); on the CPU the same solves run eagerly."""
+    to its bucket (``solve_polar`` pads to it); the operator, the
+    per-point pass (one lane a point), the walk's inviscid fill over the
+    bucket, one continuation solve from the pass's first lane (the walk's
+    one-lane key) and, with ``rescue``, the smoothed operator and rescue
+    (min(8, bucket) lanes). The operator's key is the loop's coordinate
+    bucket, so it is built (and smoothed, with ``rescue``) at every other
+    bucket up to 256 points too. One after another: the reference's
+    threads overlap XLA compiles, which the port does not have. On
+    ``device`` (see ``resolve_device``); on the CPU the same solves run
+    eagerly."""
     dev = resolve_device(device)
-    coords = _pad_coords(torch.as_tensor(
-        np.asarray(naca4(2, 4, 12, (n_coords - 1) // 2), np.float32),
-        device=dev))
+    coords = _naca_loop(n_coords, dev)
     b = _bucket_size(p)
     alphas = torch.as_tensor(np.linspace(-10.0, 20.0, b, dtype=np.float32),
                              device=dev)
     res = torch.full((b,), 1e6, dtype=DTYPE, device=dev)
     op, _xp, _yp = _op_kernel(coords, n_panels)
     _m1, (_nok1, st1) = _points_kernel(op, alphas, res)
+    inviscid_program(op, alphas)
     solve_polar_point_cont(op, alphas[0], res[0], *(x[0] for x in st1),
                            n_stations=_N_STATIONS)
     if rescue:
         r = min(8, b)
         _rescue_kernel(_op_kernel_smoothed(coords, n_panels), alphas[:r],
                        res[:r])
+    for m in _C_BUCKETS:
+        if m != coords.shape[0]:
+            loop = _naca_loop(m, dev)
+            _op_kernel(loop, n_panels)
+            if rescue:
+                _op_kernel_smoothed(loop, n_panels)
 
 
 def solve_polar(

@@ -263,14 +263,6 @@ def _read_fields(op: InviscidOperator) -> InviscidOperator:
     return op._replace(bn=None, at_a=None, at_b=None, bt=None)
 
 
-def _on_device(v, like: torch.Tensor) -> torch.Tensor:
-    """``v`` as a tensor of ``like``'s type on its device; a number is
-    filled in on the device, not copied there from the host."""
-    if isinstance(v, (int, float)) and not isinstance(v, bool):
-        return torch.full((), float(v), dtype=like.dtype, device=like.device)
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
-
-
 def solve_viscous(
     op: InviscidOperator,
     alpha_deg,
@@ -303,7 +295,7 @@ def solve_viscous(
     dev = xm.device
     # Every number of a call is a tensor before the body: one made inside
     # it would be frozen into the graph at its capture.
-    alpha, re, n_crit_t, x_tr = (_on_device(v, xm) for v in (
+    alpha, re, n_crit_t, x_tr = (graphs.as_input(v, xm) for v in (
         alpha_deg, reynolds, n_crit, x_forced_transition))
     scalars = (alpha, 1.0 / re, n_crit_t, x_tr)
     flat, spec = graphs.flatten((_read_fields(op), *scalars))

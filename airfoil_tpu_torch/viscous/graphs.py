@@ -1,10 +1,10 @@
-"""CUDA graphs of the solver's compiled programs, one a program and shape
+"""CUDA graphs of the port's compiled programs, one a program and shape
 key: the port's compiled-program layer.
 
-The counterparts of the reference's ``jax.jit`` programs on the XFOIL
-path, each compiled once per static shape there. Eager PyTorch issues
-every small operation of such a program from Python every time; a graph
-captures them once and replays them without Python. The programs:
+The counterparts of the reference's ``jax.jit`` programs, each compiled
+once per static shape there. Eager PyTorch issues every small operation
+of such a program from Python every time; a graph captures them once and
+replays them without Python. The programs of the solver:
 
 - ``"lm"``: one Levenberg-Marquardt iteration (``newton._lm_body``),
   replayed ``newton_iters`` times a round (``run_lm``). Its last
@@ -22,10 +22,27 @@ captures them once and replays them without Python. The programs:
   and its residual and lane bookkeeping after them, the lanes' answer with
   its oracle march (``newton._prepare``, ``_lm_rounds``, ``_lane_answer``).
 
+And the programs around it (``airfoil_tpu/polar/sweep.py:367-380``,
+``airfoil_tpu/inviscid/panel_solver.py:371``,
+``airfoil_tpu/lbm/diagnostics.py:25,55``):
+
+- ``"operator"``: coordinates to an inviscid operator
+  (``inviscid.programs.operator_program``: repanel, the smoothing where
+  asked, the paneling and the influence fill; then the source
+  sensitivities through the factor). Two graphs a key, around the LU
+  factor, which runs eagerly between them: torch factors a batch of
+  matrices through MAGMA, whose batched factor cannot be captured.
+- ``"inviscid"``: the standalone inviscid solve
+  (``inviscid.programs.inviscid_program``).
+- ``"frame"``: the wind tunnel's frame diagnostics, the forces and
+  separation share and the five fields (``lbm.diagnostics.frame_fields``);
+  the LBM step before them stays its own kernel launch.
+
 Each program is a plain function of a flat list of tensors (``flatten``
 and ``unflatten`` turn nested tuples, named tuples and dicts of tensors
 into such a list and back); its key fixes every shape and every Python
-number the body reads, everything else is data.
+number the body reads, everything else is data (``as_input`` makes a
+call's numbers tensors before the body).
 
 - **Static inputs.** Each call copies its list into the key's static
   buffers before it replays. The plans' constants and the numerics'
@@ -69,10 +86,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from airfoil_tpu_torch.viscous import kernel
 
-__all__ = ["PROGRAMS", "captures", "flatten", "lm_key", "pool_bytes",
-           "replays", "run", "run_lm", "total", "unflatten"]
+__all__ = ["PROGRAMS", "as_input", "captures", "flatten", "lm_key",
+           "pool_bytes", "replays", "run", "run_lm", "total", "unflatten"]
 
-PROGRAMS = ("lm", "direct", "prepare", "reproject", "settle", "answer")
+PROGRAMS = ("lm", "direct", "prepare", "reproject", "settle", "answer",
+            "operator", "inviscid", "frame")
 
 captures: dict = {}     # (program, key) -> graphs captured
 replays: dict = {}      # (program, key) -> replays
@@ -87,6 +105,16 @@ def lm_key(system) -> tuple:
     the lanes, panel nodes) of a ``newton._System``."""
     return (system.vt0.device, system.lanes, system.m_s, system.n_w,
             system.shared, system.op.pan.s.shape[-1])
+
+
+def as_input(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a tensor of ``like``'s type on its device, for a program's
+    flat list: a number made a tensor inside a body would be frozen into
+    the graph at its capture. A number is filled in on the device, not
+    copied there from the host."""
+    if isinstance(v, (int, float)) and not isinstance(v, bool):
+        return torch.full((), float(v), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
 def total(counter: dict, program: str | None = None) -> int:

@@ -173,7 +173,9 @@ of the reference ensemble's members with the same ``converged``:
     answer comes) is answered 200 and equal to the same upload after the
     warm-up, whose four stages logged and none failed; each key's graph
     pool. (b) counts the graphs of every program: ``warm_polar_kernels``
-    captures 15 (five programs at three keys), the polars none;
+    captures 28 (five Newton programs at three keys, the walk's inviscid
+    fill, the operator build's two graphs plain and smoothed at each of
+    the three coordinate buckets), the polars none;
 20b. solver graphs — the solver's other programs as CUDA graphs
     (``viscous/graphs.py``: the direct solve ``solve_viscous``, the Newton
     set-up, round and answer), from an empty cache: each graphed equals
@@ -185,7 +187,23 @@ of the reference ensemble's members with the same ``converged``:
     programs at the default solve's lane, the polar's points pass (32
     lanes), its walk's continuation (1 lane, 1 warm pass, a start state)
     and its rescue (8 lanes, smoothed), 3 points a key; one capture a key,
-    none at a replay; each key's graph pool.
+    none at a replay; each key's graph pool;
+20c. program graphs — the operator build, the standalone inviscid solve
+    and the frame diagnostics as CUDA graphs (``inviscid/programs.py``,
+    ``lbm/diagnostics.py``), from an empty cache, each graphed equal to
+    its eager body bit for bit, one capture a key and none at a replay:
+    the operator at the polar's bucket (1 lane, 192 points, 160 panels,
+    plain and smoothed), a parser chunk (32 lanes, 121 points, 128
+    panels, an all-zero lane whose non-finite values stay in it), the
+    batch's lanes (one loop a key) and the graft entry's ``fn`` (its
+    operator and direct solve), two inputs a key; the inviscid solve at
+    the walk's fill (32 angles) and strategy 3 (one angle); the frame at
+    384x192 and 2048x1024 after 200 steps, then after a ``set_u0`` and
+    after a ``set_alpha``, each also equal bit for bit to
+    ``forces_and_separation`` and ``render_fields`` with the float ``u0``,
+    then three of the tunnel's own frames replaying the key; each key's
+    graph pool; whether ``torch.linalg.lu_factor_ex`` captures at one
+    matrix of 161 and at the chunk's 32 of 129 (logged, not required).
 
 The phases that record the marches a solve makes (``recording``: phases
 10, 12, 13, and the second runs of 17 and 22) run the solver's programs
@@ -314,7 +332,7 @@ runs (LBM kernels) or the polar line 1 is built from (march kernels));
 beside the kernels, ``lm_graphs``: the LM graphs' captures and replays in
 the run, phase 20a's keys, pools, iteration and solve times, ``programs``:
 every program's captures and replays, ``solver_graphs``: phase 20b's
-cases and pools), and the last line the result (JSON). JAX is never imported, nor anything of
+cases and pools, ``program_graphs``: phase 20c's), and the last line the result (JSON). JAX is never imported, nor anything of
 ``airfoil_tpu``.
 """
 
@@ -2731,10 +2749,11 @@ def phase_graphs(dev, card, newton, graphs, sweep, handlers, make_server,
                     f"captured {all_b - all_a} graphs")
     # Three keys (the pass's 32 lanes, the walk's 1, the rescue's 8), five
     # programs at each (set-up, re-projection, LM iteration, settle,
-    # answer).
-    require(c1 - c0 == 3 and all1 - all0 == 15,
+    # answer); the walk's inviscid fill; the operator's two graphs, plain
+    # and smoothed, at each of the three coordinate buckets.
+    require(c1 - c0 == 3 and all1 - all0 == 28,
             f"warm_polar_kernels(p=32) captured {c1 - c0} LM graphs and "
-            f"{all1 - all0} in all, want 3 (pass, walk, rescue) and 15")
+            f"{all1 - all0} in all, want 3 (pass, walk, rescue) and 28")
 
     # (c) Three threads solve one key at once.
     op = ops["2412"]
@@ -2967,6 +2986,199 @@ def phase_solver_graphs(dev, card, coupled, newton, graphs, sweep, pb, ops):
     require(not fails, f"solver graphs: {fails}")
     require(set(new.values()) == {1}, f"captures a key: {new}")
     return {"cases": cases, "pool_bytes": keys}
+
+
+def _lanes_not_finite(tensors) -> list:
+    """The lanes (leading axis) in which any of ``tensors`` holds a value
+    that is not finite."""
+    bad = None
+    for t in tensors:
+        if t.dim() and t.is_floating_point():
+            lane = ~torch.isfinite(t.reshape(t.shape[0], -1)).all(-1)
+            bad = lane if bad is None else bad | lane
+    return [i for i, b in enumerate(bad.tolist()) if b]
+
+
+def lu_capture(dev, shape) -> str:
+    """Whether ``torch.linalg.lu_factor_ex`` of a batch of ``shape``
+    captures in a CUDA graph (one eager call on the capture's stream
+    first), and if so whether a replay on new data equals the eager
+    factor bit for bit: why the operator program factors between its two
+    graphs."""
+    gen = torch.Generator().manual_seed(0)
+    n = shape[-1]
+
+    def matrix():
+        return (torch.randn(shape, generator=gen) + 20 * torch.eye(n)).to(dev)
+
+    static = matrix()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            torch.linalg.lu_factor_ex(static)
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = torch.linalg.lu_factor_ex(static)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return f"not captured ({type(e).__name__}: {str(e).splitlines()[0]})"
+    a = matrix()
+    static.copy_(a)
+    graph.replay()
+    want = torch.linalg.lu_factor_ex(a)
+    same = _same_bits(out[:2], want[:2])
+    return f"captured, a replay on new data {'==' if same else '!='} eager"
+
+
+def phase_program_graphs(dev, card, graphs, sweep, pb, batch, programs,
+                         graft_entry, kernel, diagnostics, WindTunnel,
+                         cfg_cls, ops):
+    """Phase 20c: the operator build, the standalone inviscid solve and the
+    frame diagnostics as CUDA graphs (``viscous.graphs``), from an empty
+    cache. Each graphed equals its eager body bit for bit, one capture a
+    key and none at a replay: the operator at the polar's bucket (plain
+    and smoothed), a parser chunk of 32 lanes with an all-zero lane, the
+    batch's lanes and the graft entry's ``fn``; the inviscid solve at the
+    walk's fill (32 angles) and at strategy 3 (one angle); the frame at
+    384x192 and 2048x1024, after a ``set_u0`` and a ``set_alpha`` too,
+    also equal to the float-``u0`` diagnostics, then the tunnel's own
+    frames replaying the key. Returns the record for the kernel line."""
+    from airfoil_tpu_torch.models import naca4
+    graphs._GRAPHS.clear()
+    before = dict(graphs.captures)
+    cases, fails = {}, []
+
+    def case(label, fn, first, check=None):
+        out = _program_case(graphs, fn)
+        want_caps = out["captures"] != {} if first else out["captures"] == {}
+        wrong = check(out["out"]) if check else ""
+        ok = out["same"] and want_caps and not wrong
+        log(f"[program graphs] {label}: graph "
+            f"{'==' if out['same'] else '!='} eager bit for bit; captures "
+            f"{out['captures']}; {out['graph_s'] * 1e3:.3f} ms graphed"
+            f"{' (capture included)' if first else ''}, "
+            f"{out['eager_s'] * 1e3:.3f} ms eager{wrong} ({card}) "
+            f"{'ok' if ok else 'FAIL'}")
+        cases[label] = {k: v for k, v in out.items()
+                        if k in ("same", "captures", "graph_s", "eager_s")}
+        if not ok:
+            fails.append(label)
+        return out["out"]
+
+    def loop(m, p, t, n=60):
+        return torch.as_tensor(np.asarray(naca4(m, p, t, n), np.float32),
+                               device=dev)
+
+    # The operator: the polar's bucket, plain and smoothed.
+    polar_loops = {"NACA 2412": sweep._pad_coords(loop(2, 4, 12, 95)),
+                   "NACA 0015": sweep._pad_coords(loop(0, 0, 15, 95))}
+    polar_ops = {}
+    for smooth in (False, True):
+        for i, (name, c) in enumerate(polar_loops.items()):
+            fn = ((lambda: sweep._op_kernel_smoothed(c, N_PANELS)) if smooth
+                  else (lambda: sweep._op_kernel(c, N_PANELS)))
+            out = case(f"operator, polar bucket (192 points, 160 panels"
+                       f"{', smoothed' if smooth else ''}), {name}", fn,
+                       i == 0)
+            if not smooth:
+                polar_ops[name] = out[0]
+    # A parser chunk: 32 lanes, one an all-zero loop.
+    chunks = ([naca4(m, 4, t, 60) for m in (0, 2, 4) for t in range(6, 36, 3)]
+              + [np.zeros((121, 2), np.float32), naca4(2, 4, 12, 60)],
+              [naca4(m, 3, t, 60) for m in (1, 3, 5) for t in range(7, 37, 3)]
+              + [np.zeros((121, 2), np.float32), naca4(0, 0, 12, 60)])
+    degenerate = len(chunks[0]) - 2
+
+    def in_its_lane(op):
+        lanes = _lanes_not_finite(graphs.flatten(op)[0])
+        return ("" if lanes == [degenerate] else
+                f"; lanes not finite {lanes}, want [{degenerate}]")
+
+    for i, loops in enumerate(chunks):
+        case(f"operator, parser chunk {i + 1} (32 lanes, 121 points, 128 "
+             f"panels, lane {degenerate} all zero)",
+             lambda: pb.chunk_operators(pb.resample(loops)[0], dev), i == 0,
+             in_its_lane)
+    # The batch's lanes: one loop a key.
+    for i, pair in enumerate(((naca4(2, 4, 12, 80), naca4(0, 0, 12, 80)),
+                              (naca4(4, 4, 12, 80), naca4(2, 4, 15, 80)))):
+        case(f"operator, batch pair {i + 1} (one loop of 161 points a key, "
+             f"160 panels)", lambda: batch._batch_ops(pair, N_PANELS, dev),
+             i == 0)
+    # The graft entry's fn: its operator and direct solve.
+    fn, args = graft_entry.entry(dev)
+    for i, c in enumerate((args[0], loop(0, 0, 12))):
+        case(f"graft entry fn (121 points, 128 panels), loop {i + 1}",
+             lambda: fn(c, *args[1:]), i == 0)
+
+    # The standalone inviscid solve: the walk's fill and strategy 3.
+    for i, (name, lo, hi) in enumerate((("NACA 2412", -10.0, 20.0),
+                                        ("NACA 0015", -6.0, 18.0))):
+        a32 = torch.linspace(lo, hi, 32, device=dev)
+        case(f"inviscid, the walk's fill ({name}, 32 angles "
+             f"{lo:g}..{hi:g})",
+             lambda: programs.inviscid_program(polar_ops[name], a32), i == 0)
+    for i, (code, a) in enumerate((("2412", 19.0), ("0012", 14.0))):
+        case(f"inviscid, strategy 3 (NACA {code}, alpha {a:g})",
+             lambda: programs.inviscid_program(ops[code], a), i == 0)
+
+    # The frame diagnostics, with a u0 change and a mask change between
+    # replays, then the tunnel's own frames.
+    for nx, ny in ((384, 192), LARGE):
+        cfg = cfg_cls(nx=nx, ny=ny)
+        wt = WindTunnel(naca4_coords(), cfg=cfg, device=dev)
+        st = wt.state
+        step = kernel.lbm_steps_tiled if wt.tiled else kernel.lbm_steps
+        for i, change in enumerate(("", "set_u0", "set_alpha")):
+            if change == "set_u0":
+                wt.set_u0(0.8 * cfg.u0)
+            elif change == "set_alpha":
+                wt.set_alpha(10.0)
+            st.f = step(st.f, st.solid, st.u0, cfg.tau,
+                        steps=200 if i == 0 else 40, word=st.word)
+
+            def floats(out):
+                old = (*diagnostics.forces_and_separation(
+                    st.f, st.solid, st.u0, cfg.chord_cells),
+                    *diagnostics.render_fields(st.f, st.solid, st.u0))
+                return ("" if _same_bits(graphs.flatten(out)[0], old) else
+                        "; != the float-u0 diagnostics")
+
+            case(f"frame {nx}x{ny}{', after ' + change if change else ''} "
+                 f"(u0 {st.u0:g}, alpha {st.alpha:g})",
+                 lambda: diagnostics.frame_fields(st.f, st.solid, st.u0,
+                                                  cfg.chord_cells),
+                 i == 0, floats)
+        c0 = graphs.total(graphs.captures, "frame")
+        r0 = graphs.total(graphs.replays, "frame")
+        for _ in range(3):
+            wt.frame()
+        c1 = graphs.total(graphs.captures, "frame")
+        r1 = graphs.total(graphs.replays, "frame")
+        log(f"[program graphs] three WindTunnel.frame at {nx}x{ny}: "
+            f"{c1 - c0} captures, {r1 - r0} frame replays "
+            f"{'ok' if (c1, r1 - r0) == (c0, 3) else 'FAIL'}")
+        if (c1, r1 - r0) != (c0, 3):
+            fails.append(f"tunnel frames at {nx}x{ny}")
+        del wt, st
+
+    new = {k: graphs.captures[k] - before.get(k, 0) for k in graphs.captures
+           if graphs.captures[k] != before.get(k, 0)}
+    keys = {f"{k[0]} {k[1][1:]}": graphs.pool_bytes[k] for k in new}
+    log(f"[program graphs] captures a key in this phase (each 1): "
+        f"{sorted(set(new.values()))}; graph pools, bytes by program and "
+        f"key: {json.dumps(keys)} ({card})")
+    require(not fails, f"program graphs: {fails}")
+    require(set(new.values()) == {1}, f"captures a key: {new}")
+    require({k[0] for k in new} >= {"operator", "inviscid", "frame"},
+            f"programs captured: {sorted({k[0] for k in new})}")
+    lu = {str(shape): lu_capture(dev, shape)
+          for shape in ((161, 161), (pb.CHUNK, 129, 129))}
+    log(f"[program graphs] torch.linalg.lu_factor_ex in a CUDA graph, by "
+        f"shape: {json.dumps(lu)} ({card})")
+    return {"cases": cases, "pool_bytes": keys, "lu_factor_ex": lu}
 
 
 def phase_mask_speed(dev, card, masks, cfg_cls, WindTunnel):
@@ -4084,6 +4296,15 @@ def run(run_log_dir: str, work: str) -> int:
                                         sweep, pb, ops)
     log(f"[solver graphs] the solver graphs phase took "
         f"{time.perf_counter() - t_graphs:.1f} s")
+    from airfoil_tpu_torch import graft_entry
+    from airfoil_tpu_torch.inviscid import programs
+    from airfoil_tpu_torch.polar import batch as batch_mod
+    t_graphs = time.perf_counter()
+    program_graphs = phase_program_graphs(
+        dev, card, graphs, sweep, pb, batch_mod, programs, graft_entry,
+        kernel, diagnostics, WindTunnel, LBMConfig, ops)
+    log(f"[program graphs] the program graphs phase took "
+        f"{time.perf_counter() - t_graphs:.1f} s")
     newton_keys = {name: {
         "newton_launches": newton_launches[name],
         "newton_max_abs_err": newton_abs[name],
@@ -4142,7 +4363,6 @@ def run(run_log_dir: str, work: str) -> int:
 
     # The multi-device paths: the sharded LBM and the sharded polar at 1
     # rank (NCCL) and 4 ranks sharing the card (gloo), then the graft entry.
-    from airfoil_tpu_torch import graft_entry
     from airfoil_tpu_torch.parallel import launch as par_launch
     gpar = load_goldens(PARALLEL_GOLDENS)
     gp = gpar["polar"]
@@ -4212,7 +4432,7 @@ def run(run_log_dir: str, work: str) -> int:
             programs={prog: {"captures": graphs.total(graphs.captures, prog),
                              "replays": graphs.total(graphs.replays, prog)}
                       for prog in graphs.PROGRAMS},
-            solver_graphs=solver_graphs)}))
+            solver_graphs=solver_graphs, program_graphs=program_graphs)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

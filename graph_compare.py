@@ -32,8 +32,20 @@ trees have:
    the median of 10, and its [cl, cd, cm];
 6. the parser benchmark (``bench.parser_benchmark.run_benchmark``) over
    the 500-file synthetic corpus (seed 0), once, as its CLI runs it (the
-   first chunk captures the tree's graph where it has one): its wall and
-   its raw, parsed, rescued and regressed counts.
+   first chunk captures the tree's graphs where it has them): its wall,
+   split into the chunks' operator builds (``chunk_operators``), their
+   lane solves (``solve_chunk``), each timed synchronised, and the rest on
+   the host (corpus parse, resample, CSV); and its raw, parsed, rescued
+   and regressed counts;
+7. the headline polar once more, with its walk (``sweep._walk``) and the
+   walk's continuation solves (``sweep.solve_polar_point_cont``) timed
+   synchronised: the walk's host bookkeeping outside its solves (the walk
+   less its solves) as a share of that polar's wall;
+8. the served frame at 384x192 (NACA 2412, alpha 6): ``WindTunnel.frame``
+   (the LBM step and the frame diagnostics, three scalars read back) after
+   10 warm frames, the median of 50; the same at 2048x1024; and the
+   ``/lbm/frame`` round trip (speed, cp and vorticity as base64 in the
+   JSON) through a server on a local port, the median of 40 after 10.
 
 Prints the card's name and power limit first, then one JSON line a child
 run, then the medians of each tree; writes them all to ``OUT_JSON`` where
@@ -48,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -66,6 +79,21 @@ def _wall(fn, n: int) -> float:
         torch.cuda.synchronize()
         t.append(time.perf_counter() - t0)
     return statistics.median(t)
+
+
+def _timed(acc: dict, key: str, fn):
+    """``fn``, its synchronised wall added to ``acc[key]`` at each call."""
+    import torch
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+    return run
 
 
 def child(tree: str) -> dict:
@@ -132,17 +160,87 @@ def child(tree: str) -> dict:
     fn, args = graft_entry.entry(dev)
     out["graft_entry_result"] = fn(*args).tolist()
     out["graft_entry_ms"] = _wall(lambda: fn(*args), 10) * 1e3
-    with tempfile.TemporaryDirectory() as work:
-        files = corpus.generate_corpus(os.path.join(work, "corpus"), n=500,
-                                       seed=0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        summary = parser_benchmark.run_benchmark(
-            files, os.path.join(work, "out"), device=dev)
-        torch.cuda.synchronize()
-        out["parser_benchmark_s"] = time.perf_counter() - t0
+    split = {"operators": 0.0, "solves": 0.0}
+    orig_ops = parser_benchmark.chunk_operators
+    orig_solve = parser_benchmark.solve_chunk
+    parser_benchmark.chunk_operators = _timed(split, "operators", orig_ops)
+    parser_benchmark.solve_chunk = _timed(split, "solves", orig_solve)
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            files = corpus.generate_corpus(os.path.join(work, "corpus"),
+                                           n=500, seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = parser_benchmark.run_benchmark(
+                files, os.path.join(work, "out"), device=dev)
+            torch.cuda.synchronize()
+            out["parser_benchmark_s"] = time.perf_counter() - t0
+    finally:
+        parser_benchmark.chunk_operators = orig_ops
+        parser_benchmark.solve_chunk = orig_solve
     out["parser_benchmark_counts"] = [summary[k] for k in (
         "raw_converged", "parsed_converged", "rescued", "regressed")]
+    out.update({f"parser_{k}_s": v for k, v in split.items()})
+    out["parser_host_s"] = out["parser_benchmark_s"] - sum(split.values())
+
+    # The headline polar again, its walk split from the walk's solves.
+    walk = {"walk": 0.0, "solves": 0.0}
+    orig_walk, orig_cont = sweep._walk, sweep.solve_polar_point_cont
+    sweep._walk = _timed(walk, "walk", orig_walk)
+    sweep.solve_polar_point_cont = _timed(walk, "solves", orig_cont)
+    naca, alphas = POLARS["headline"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep.solve_polar(np.asarray(naca4(*naca), np.float32), alphas, 1e6,
+                          device=dev)
+        torch.cuda.synchronize()
+        polar_s = time.perf_counter() - t0
+    finally:
+        sweep._walk, sweep.solve_polar_point_cont = orig_walk, orig_cont
+    out["headline_instrumented_polar_s"] = polar_s
+    out["headline_walk_s"] = walk["walk"]
+    out["headline_walk_solves_s"] = walk["solves"]
+    out["headline_walk_host_share"] = (walk["walk"] - walk["solves"]) / polar_s
+
+    # The served frame.
+    from airfoil_tpu_torch.api.minihttp import make_server
+    from airfoil_tpu_torch.config import LBMConfig
+    from airfoil_tpu_torch.lbm.runner import WindTunnel
+    from chip_smoke import _post, naca4_coords
+    for nx, ny in ((384, 192), (2048, 1024)):
+        wt = WindTunnel(naca4_coords(), cfg=LBMConfig(nx=nx, ny=ny),
+                        device=dev)
+        for _ in range(10):
+            wt.frame()
+        out[f"frame_ms_{nx}x{ny}"] = _wall(wt.frame, 50) * 1e3
+        del wt
+    httpd = make_server(host="127.0.0.1", port=0, rate_limit=False,
+                        device=dev)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
+                                     for x, y in naca4_coords())
+    try:
+        status, meta = _post(url + "/lbm/start", {"alpha": 6.0},
+                             {"file": ("naca2412.dat", dat.encode())})
+        if status != 200:
+            raise RuntimeError(f"/lbm/start -> {status} {meta}")
+        lat = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            status, _fr = _post(url + "/lbm/frame",
+                                {"session": meta["session"],
+                                 "fields": "speed,cp,vorticity"})
+            lat.append(time.perf_counter() - t0)
+            if status != 200:
+                raise RuntimeError(f"/lbm/frame -> {status}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    out["lbm_frame_round_trip_ms"] = statistics.median(lat[10:]) * 1e3
     if graphs is not None:
         keys = list(graphs.captures)
         if hasattr(graphs, "total"):      # keyed by (program, key)

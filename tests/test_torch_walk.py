@@ -217,12 +217,13 @@ def test_padded_bucket_walk_kernel(monkeypatch):
     st1 = (np.tile(np.arange(p, dtype=np.float32)[:, None], (1, 4)),
            np.linspace(0.1, 0.5, p, dtype=np.float32), zeros + 0.9)
     out = {}
+    # The port's walk fills through its program ``inviscid_program``.
+    fills = {"jax": "solve_inviscid", "torch": "inviscid_program"}
     for pkg, mod, conv in (("jax", JS, _to_jax), ("torch", TS, _to_torch)):
         calls = []
         monkeypatch.setattr(mod, "solve_polar_point_cont",
                             _fake_cont(pkg, cont_line, None, calls))
-        monkeypatch.setattr(mod, "solve_inviscid",
-                            lambda op, al: _Inviscid(al))
+        monkeypatch.setattr(mod, fills[pkg], lambda op, al: _Inviscid(al))
         kernel = mod._walk_kernel.__wrapped__ if pkg == "jax" \
             else mod._walk_kernel
         v1, cl3, cm3 = kernel(None, conv(a), conv(np.full(p, 1e6,

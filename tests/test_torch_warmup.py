@@ -10,15 +10,19 @@ headline bench's warm-up, each against what the reference does.
 - ``warm_polar_kernels`` has the reference's parameters and defaults
   (and ``device``), and solves at the bucket's shapes: the per-point pass
   over the bucket's lanes (alphas -10..20, Re 1e6, on ``n_coords`` padded
-  coordinates), one continuation solve from the pass's first lane, the
-  smoothed rescue over min(8, bucket) lanes; none with ``rescue=False``.
+  coordinates), the walk's inviscid fill over them, one continuation
+  solve from the pass's first lane, the smoothed rescue over min(8,
+  bucket) lanes (none with ``rescue=False``), and the operator (smoothed
+  too, but with ``rescue=False``) at the other coordinate buckets.
 - ``start_warmup`` starts a daemon thread named ``solver-warmup`` that
   runs the four stages in order (monkeypatched) on the given device, and
   logs a failing stage without raising.
-- The solver programs of ``viscous.graphs`` (the direct solve, the
-  Newton set-up, round and answer, the LM iteration): ``warm_polar_kernels``
-  calls each Newton program at the keys of the bucket's pass, walk and
-  rescue, and a polar of that bucket afterwards reaches no other key;
+- The programs of ``viscous.graphs`` (the direct solve, the Newton
+  set-up, round and answer, the LM iteration, the operator build, the
+  inviscid solve): ``warm_polar_kernels`` calls each Newton program at the
+  keys of the bucket's pass, walk and rescue, the operator at every
+  coordinate bucket and the walk's fill at the bucket, and a polar of that
+  bucket afterwards reaches no other key;
   ``analyze.warm_direct_solve`` (``start_warmup``'s last stage) calls the
   direct solve at the key of the analysis's last resort. The marches are
   stand-ins and the LM iterations leave the state as it is: the keys
@@ -107,6 +111,13 @@ def recorded_passes(monkeypatch):
         calls.append(("op", tuple(coords.shape), n_panels))
         return "op", None, None
 
+    def op_kernel_smoothed(coords, n_panels=160):
+        calls.append(("op_s", tuple(coords.shape), n_panels))
+        return "op_s"
+
+    def fill(op, alphas):
+        calls.append(("fill", op, alphas.tolist()))
+
     def points(op, alphas, reynolds):
         calls.append(("points", alphas.tolist(), reynolds.tolist()))
         p = alphas.shape[0]
@@ -122,7 +133,8 @@ def recorded_passes(monkeypatch):
         calls.append(("rescue", op_s, a_b.tolist(), re_b.tolist()))
 
     monkeypatch.setattr(sweep, "_op_kernel", op_kernel)
-    monkeypatch.setattr(sweep, "_op_kernel_smoothed", lambda c, n: "op_s")
+    monkeypatch.setattr(sweep, "_op_kernel_smoothed", op_kernel_smoothed)
+    monkeypatch.setattr(sweep, "inviscid_program", fill)
     monkeypatch.setattr(sweep, "_points_kernel", points)
     monkeypatch.setattr(sweep, "solve_polar_point_cont", cont)
     monkeypatch.setattr(sweep, "_rescue_kernel", rescue)
@@ -132,24 +144,32 @@ def recorded_passes(monkeypatch):
 @pytest.mark.parametrize("p, bucket", [(32, 32), (11, 16), (5, 8)])
 def test_warm_polar_kernels_solves_the_bucket(recorded_passes, p, bucket):
     sweep.warm_polar_kernels(p=p, device="cpu")
-    op, points, cont, rescue = recorded_passes
+    op, points, fill, cont, op_s, rescue, *others = recorded_passes
     assert op == ("op", (192, 2), 160)
     want = np.linspace(-10.0, 20.0, bucket, dtype=np.float32)
     np.testing.assert_array_equal(points[1], want)
     assert points[2] == [1e6] * bucket
+    assert fill[:2] == ("fill", "op")
+    np.testing.assert_array_equal(fill[2], want)
     assert cont == ("cont", -10.0, 1e6, [0.0, 1.0, 2.0], 0.0, 0.5,
                     sweep._N_STATIONS)
+    assert op_s == ("op_s", (192, 2), 160)
     r = min(8, bucket)
     assert rescue[:2] == ("rescue", "op_s")
     np.testing.assert_array_equal(rescue[2], want[:r])
     assert rescue[3] == [1e6] * r
+    # The operator's other coordinate buckets, plain and smoothed.
+    assert others == [("op", (128, 2), 160), ("op_s", (128, 2), 160),
+                      ("op", (256, 2), 160), ("op_s", (256, 2), 160)]
 
 
 def test_warm_polar_kernels_without_rescue(recorded_passes):
     sweep.warm_polar_kernels(p=8, n_coords=128, n_panels=96, rescue=False,
                              device="cpu")
-    assert [c[0] for c in recorded_passes] == ["op", "points", "cont"]
-    assert recorded_passes[0] == ("op", (128, 2), 96)
+    assert [c[0] for c in recorded_passes] == ["op", "points", "fill",
+                                               "cont", "op", "op"]
+    assert [c[1:] for c in recorded_passes if c[0] == "op"] == [
+        ((128, 2), 96), ((192, 2), 96), ((256, 2), 96)]
 
 
 @pytest.fixture
@@ -303,6 +323,7 @@ def test_warm_polar_kernels_reaches_every_key_of_the_polar(program_keys,
     sweep.solve_polar(naca4(2, 4, 12, 80), [-2.0, 0.0, 2.0, 4.0, 6.0], 1e6,
                       device="cpu")
     assert program_keys and set(program_keys) <= warmed
+    assert {p for p, _k in program_keys} >= {"operator", "inviscid"}
 
 
 def test_warm_direct_solve_reaches_the_last_resort_key(program_keys,

@@ -10,7 +10,9 @@ time.
 
 A failed build raises with nvcc's output; there is no fallback. The
 compiler's stderr (including ``-Xptxas -v`` register and spill counts) is
-kept beside the library as ``lib<name>.log``.
+kept beside the library as ``lib<name>.log``. ``build_library`` is the
+same rule for any compiler: the native geometry library
+(``airfoil_tpu_torch/native``) builds through it with ``g++``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "load_library", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_library",
+           "load_library", "nvcc_path"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -51,7 +54,8 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
-def _is_fresh(lib_path: str, sources: list[str], flags: str) -> bool:
+def _is_fresh(lib_path: str, sources: list[str], flags: str,
+              headers: list[str] | None = None) -> bool:
     if not os.path.exists(lib_path):
         return False
     try:
@@ -61,11 +65,20 @@ def _is_fresh(lib_path: str, sources: list[str], flags: str) -> bool:
     except FileNotFoundError:
         return False
     # Every header counts for every library (a new header rebuilds them all).
-    deps = sources + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    if headers is None:
+        headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    deps = sources + headers
     return os.path.getmtime(lib_path) >= max(map(os.path.getmtime, deps))
 
 
-def _build(name: str, sources: list[str], flags: list[str]) -> str:
+def build_library(name: str, compiler, flags: list[str],
+                  sources: list[str], headers: list[str] | None = None
+                  ) -> str:
+    """Build ``lib<name>.so`` in ``BUILD_DIR`` from ``sources`` (paths)
+    with ``compiler()`` (called only when a build is due) and ``flags``,
+    unless it is fresh (newer than ``sources`` and ``headers``, default
+    the ``csrc/*.cuh`` headers, and built with ``flags``). Returns its
+    path; a failed build raises with the compiler's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
     # The file lock serialises builds across processes; the library is
@@ -73,11 +86,12 @@ def _build(name: str, sources: list[str], flags: list[str]) -> str:
     # never sees a half-written file.
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        stamp = " ".join([*NVCC_FLAGS, *flags])
-        if _is_fresh(lib_path, sources, stamp):
+        stamp = " ".join(flags)
+        if _is_fresh(lib_path, sources, stamp, headers):
             return lib_path
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", tmp, *sources]
+        exe = compiler()
+        cmd = [exe, *flags, "-o", tmp, *sources]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         with open(os.path.join(BUILD_DIR, f"lib{name}.log"), "w") as log:
             log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -85,8 +99,8 @@ def _build(name: str, sources: list[str], flags: list[str]) -> str:
             if os.path.exists(tmp):
                 os.remove(tmp)
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {name}:\n"
-                f"{proc.stderr[-4000:]}")
+                f"{os.path.basename(exe)} failed (exit {proc.returncode}) "
+                f"building {name}:\n{proc.stderr[-4000:]}")
         os.replace(tmp, lib_path)
         with open(f"{lib_path[:-3]}.flags", "w") as fh:
             fh.write(stamp)
@@ -105,6 +119,7 @@ def load_library(name: str, sources: list[str],
         lib = _LIBS.get(name)
         if lib is None:
             paths = [os.path.join(CSRC_DIR, s) for s in sources]
-            lib = ctypes.CDLL(_build(name, paths, list(flags)))
+            lib = ctypes.CDLL(build_library(
+                name, nvcc_path, [*NVCC_FLAGS, *flags], paths))
             _LIBS[name] = lib
         return lib

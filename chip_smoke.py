@@ -4,7 +4,8 @@ Drives the port's wind-tunnel path, its XFOIL-replacement path, its
 single-point analysis service, its polar and batch analyses, its
 parser-robustness benchmark, paneling probe and flow field, its
 multi-device paths, and its exact Joukowski anchor, headline bench records,
-profiling utilities and heatmap (``airfoil_tpu_torch``) on the card and
+profiling utilities and heatmap, its native geometry library and its
+service's entry point (``airfoil_tpu_torch``) on the card and
 fails (non-zero exit, no result line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
@@ -307,6 +308,26 @@ and the heatmap (``ui/flowviz.py``):
     PNG; without matplotlib (an optional package) the phase logs
     "skipped: no matplotlib".
 
+Then the native geometry library (``native/fastgeo.cpp``) and the
+service's entry point (``api/server.py``):
+
+32. entry — (a) ``g++`` built ``libfastgeo`` in this run from the
+    checkout's source into ``airfoil_tpu_torch/_build/``;
+    ``rasterize_airfoil`` takes its scanline (``masks.rasteriser()`` is
+    ``native``), whose masks equal the numpy scanline's element for
+    element at 384x192 and 2048x1024 (5 alphas each), and its parse equals
+    the Python parser's on phase 21's 500-file corpus (phase 8 logs both
+    rasterisers' times); (b) ``python -m airfoil_tpu_torch.api.server``
+    as a child process on a free ``PORT`` with no device named: it logs
+    the minihttp transport (no FastAPI), ``/health`` names the card, and
+    after its warm-up (the counts set to 0 then) golden (e)'s
+    ``/upload_airfoil/`` is held as phase 16 holds it, one more run log
+    and count; ``/lbm/start``, 5 ``/lbm/frame`` (one at a new alpha) and
+    ``/lbm/stop`` give finite fields equal to the in-process server's bit
+    for bit; the requests launched 5 ``lbm_steps``, no tiled kernel, the
+    masks' ``cell_word`` and the upload's marches (read from the child);
+    the child is then stopped.
+
 Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
 operations of its plain version on the same inputs (pointwise torch
@@ -328,7 +349,8 @@ the launches of every rank of the sharded LBM's runs (LBM kernels) or of
 the sharded polar's (march kernels); ``sharded_max_abs_err``: the sharded
 lattices' largest difference from the unsharded kernel's;
 ``entry_launches``: the graft entry's; ``headline_launches``: line 2's
-runs (LBM kernels) or the polar line 1 is built from (march kernels));
+runs (LBM kernels) or the polar line 1 is built from (march kernels);
+``server_entry_launches``: phase 32's requests to the server entry);
 beside the kernels, ``lm_graphs``: the LM graphs' captures and replays in
 the run, phase 20a's keys, pools, iteration and solve times, ``programs``:
 every program's captures and replays, ``solver_graphs``: phase 20b's
@@ -346,6 +368,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1934,6 +1957,27 @@ def phase_analyze(dev, goldens, polar, analyze_mod):
     return walls
 
 
+def upload_fails(status: int, body: dict, g: dict) -> list:
+    """How the reply to golden (e)'s upload fails its hold: the schema,
+    the coordinates and parser fixes, cp_x, the coefficients within the
+    bars of the reference's ensemble, the boundary-layer schema."""
+    want = g["reply"]
+    if status != 200 or set(body) != set(want):
+        return [f"status {status}, keys {sorted(body)}"]
+    c = body["coefficients"]
+    fails = _coefficients_held(c, g["ensemble"])
+    for key in ("coords_before", "coords_after", "num_points",
+                "parser_fixes"):
+        if body[key] != want[key]:
+            fails.append(f"{key} differs from the reference's")
+    if not np.allclose(body["cp_x"], want["cp_x"], rtol=1e-5, atol=1e-6):
+        fails.append("cp_x")
+    if c["mode"] == "viscous" and not _bl_schema(
+            body["bl_data"], NEWTON_SHAPE["n_stations"]):
+        fails.append("bl_data schema")
+    return fails
+
+
 def phase_upload(goldens, make_server, run_log_dir, stats, analyze_mod):
     """``POST /upload_airfoil/`` on the port's server on the card with
     golden (e)'s file; returns the request's wall seconds."""
@@ -1957,21 +2001,7 @@ def phase_upload(goldens, make_server, run_log_dir, stats, analyze_mod):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    fails = []
-    if status != 200 or set(body) != set(want):
-        fails.append(f"status {status}, keys {sorted(body)}")
-    else:
-        c = body["coefficients"]
-        fails += _coefficients_held(c, g["ensemble"])
-        for key in ("coords_before", "coords_after", "num_points",
-                    "parser_fixes"):
-            if body[key] != want[key]:
-                fails.append(f"{key} differs from the reference's")
-        if not np.allclose(body["cp_x"], want["cp_x"], rtol=1e-5, atol=1e-6):
-            fails.append("cp_x")
-        if c["mode"] == "viscous" and not _bl_schema(
-                body["bl_data"], NEWTON_SHAPE["n_stations"]):
-            fails.append("bl_data schema")
+    fails = upload_fails(status, body, g)
     logs = os.listdir(run_log_dir)
     count = stats.get_analysis_count()
     if len(logs) != 1 or count != (count0 or 0) + 1:
@@ -3183,17 +3213,30 @@ def phase_program_graphs(dev, card, graphs, sweep, pb, batch, programs,
 
 def phase_mask_speed(dev, card, masks, cfg_cls, WindTunnel):
     """Host time of the solid mask that ``/lbm/start`` builds at the served
-    384x192 and of a 2048x1024 ``WindTunnel``'s construction, mask
-    included."""
+    384x192 and at 2048x1024, by the native scanline (the one
+    ``rasterize_airfoil`` takes on this machine) and by the numpy one, and
+    of a 2048x1024 ``WindTunnel``'s construction, mask included."""
     coords = naca4_coords()
-    t_served = _median_s(lambda: masks.build_mask(coords, 6.0, cfg_cls()), 20)
     big = cfg_cls(nx=LARGE[0], ny=LARGE[1])
-    t_big = _median_s(lambda: masks.rasterize_airfoil(coords, 6.0, big), 5)
+    t = {}
+    for label, cfg, n in (("384x192", cfg_cls(), 20),
+                          (f"{LARGE[0]}x{LARGE[1]}", big, 5)):
+        xp, yp = masks._panelise(masks._rotate(coords.astype(np.float64),
+                                               6.0))
+        domain = (cfg.dx0, cfg.dx1, cfg.dy0, cfg.dy1)
+        t[label] = (
+            _median_s(lambda: masks.rasterize_airfoil(coords, 6.0, cfg), n),
+            _median_s(lambda: masks.raster_mask_numpy(xp, yp, cfg.nx, cfg.ny,
+                                                      domain), n))
+    t_served = _median_s(lambda: masks.build_mask(coords, 6.0, cfg_cls()), 20)
     t_tunnel = _median_s(lambda: WindTunnel(coords, cfg=big, device=dev), 3)
-    log(f"[speed] solid mask (numpy scanline, median): 384x192 "
-        f"{t_served * 1e3:.3f} ms, {LARGE[0]}x{LARGE[1]} {t_big * 1e3:.3f} ms; "
-        f"WindTunnel construction at {LARGE[0]}x{LARGE[1]} "
-        f"{t_tunnel * 1e3:.3f} ms ({card})")
+    log(f"[speed] solid mask (median; rasterize_airfoil takes the "
+        f"{masks.rasteriser()} scanline): "
+        + ", ".join(f"{g} native {a * 1e3:.3f} ms, numpy {b * 1e3:.3f} ms"
+                    for g, (a, b) in t.items())
+        + f"; build_mask at 384x192 {t_served * 1e3:.3f} ms; WindTunnel "
+        f"construction at {LARGE[0]}x{LARGE[1]} {t_tunnel * 1e3:.3f} ms "
+        f"({card})")
 
 
 def lbm_bound(dev, core, masks, cfg_cls, grid) -> tuple[float, str]:
@@ -4175,6 +4218,317 @@ def phase_flowviz(card, field):
         f"{wall:.3f} s ({card})")
 
 
+# The server entry's child: ``airfoil_tpu_torch.api.server`` run as
+# ``python -m`` runs it (``runpy``, as ``__main__``), with one addition: on
+# SIGUSR1 its kernel launch counts are written to $CHIP_SMOKE_COUNTS and
+# set to 0, so the parent reads the requests' launches apart from the
+# warm-up's.
+ENTRY_CHILD = r"""
+import json, os, runpy, signal
+
+def counts(signum, frame):
+    from airfoil_tpu_torch.lbm import kernel
+    from airfoil_tpu_torch.viscous import kernel as mk
+    out = {"lbm_steps": kernel.launches, "cell_word": kernel.word_launches,
+           "lbm_steps_tiled": kernel.tiled_launches,
+           "bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches}
+    kernel.launches = kernel.word_launches = kernel.tiled_launches = 0
+    mk.march_launches = mk.wake_launches = 0
+    path = os.environ["CHIP_SMOKE_COUNTS"]
+    with open(path + ".tmp", "w") as fh:
+        json.dump(out, fh)
+    os.replace(path + ".tmp", path)
+
+signal.signal(signal.SIGUSR1, counts)
+runpy.run_module("airfoil_tpu_torch.api.server", run_name="__main__",
+                 alter_sys=True)
+"""
+ENTRY_FRAMES = 5
+ENTRY_WARMUP_S = 300
+
+
+def _child_counts(child, path: str) -> dict:
+    """The child's launch counts since the last call (SIGUSR1)."""
+    if os.path.exists(path):
+        os.remove(path)
+    child.send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + 30
+    while not os.path.exists(path):
+        require(child.poll() is None and time.monotonic() < deadline,
+                "the server entry wrote no launch counts")
+        time.sleep(0.05)
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def phase_native(card, masks, native, cfg_cls, parse_dat_text,
+                 parse_error, files, t_start: float):
+    """Phase 32a: ``g++`` built ``libfastgeo`` from the checkout's source
+    into ``_build/`` in this run; ``rasterize_airfoil`` takes it; its masks
+    equal the numpy scanline's element for element at 384x192 and
+    2048x1024, and its parse the Python parser's on the 500-file corpus
+    (error text, coordinates, fixes). Returns nothing; logs the times."""
+    from airfoil_tpu_torch import cuda_build
+    require(shutil.which("g++") is not None, "no g++ on this machine")
+    require(native.native_available(), "the native library did not load")
+    lib = os.path.join(cuda_build.BUILD_DIR, "libfastgeo.so")
+    require(native.get_lib()._name == lib and
+            os.path.getmtime(lib) >= t_start,
+            f"libfastgeo not built in this run into {cuda_build.BUILD_DIR}")
+    with open(os.path.join(cuda_build.BUILD_DIR, "libfastgeo.log")) as fh:
+        cmd = fh.readline().strip()
+    require(native._SRC in cmd, f"libfastgeo built from {cmd}")
+    require(masks.rasteriser() == "native",
+            f"rasterize_airfoil takes the {masks.rasteriser()} scanline")
+    coords = naca4_coords().astype(np.float64)
+    checked = 0
+    for grid in ((384, 192), LARGE):
+        cfg = cfg_cls(nx=grid[0], ny=grid[1])
+        domain = (cfg.dx0, cfg.dx1, cfg.dy0, cfg.dy1)
+        for alpha in (-7.5, 0.0, 6.0, 10.0, 18.0):
+            xp, yp = masks._panelise(masks._rotate(coords, alpha))
+            got = native.raster_mask_native(xp, yp, cfg.nx, cfg.ny, domain)
+            want = masks.raster_mask_numpy(xp, yp, cfg.nx, cfg.ny, domain)
+            require(np.array_equal(got, want) and 0 < got.sum(),
+                    f"native mask != numpy at {grid} alpha {alpha}: "
+                    f"{int((got != want).sum())} cells")
+            require(np.array_equal(masks.rasterize_airfoil(
+                coords, alpha, cfg), got), "rasterize_airfoil is not native")
+            checked += 1
+
+    def outcome(fn, text):
+        try:
+            c, fixes = fn(text)
+        except parse_error as e:
+            return "error", e.detail, None
+        return "ok", fixes, c
+
+    texts = []
+    for path in files:
+        with open(path, errors="ignore") as fh:
+            texts.append(fh.read())
+    t0 = time.perf_counter()
+    nat = [outcome(native.parse_dat_native, t) for t in texts]
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [outcome(parse_dat_text, t) for t in texts]
+    t_py = time.perf_counter() - t0
+    off = [os.path.basename(p) for p, a, b in zip(files, nat, py) if a != b]
+    require(not off, f"native parse != Python parser: {off[:5]}")
+    log(f"[native] libfastgeo built by g++ in this run ({cmd}); "
+        f"rasterize_airfoil takes the native scanline; {checked} masks "
+        f"(384x192 and {LARGE[0]}x{LARGE[1]}, 5 alphas) equal the numpy "
+        f"scanline's; {len(files)} corpus files parse alike "
+        f"({sum(o[0] == 'error' for o in nat)} refused): native "
+        f"{t_nat * 1e3:.1f} ms, Python {t_py * 1e3:.1f} ms for all "
+        f"({card})")
+
+
+def _served(base: str, g: dict, pg: dict, frames: list) -> dict:
+    """One pass of the service's routes at ``base``: ``GET /``, golden
+    (e)'s ``/upload_airfoil/``, the golden polar's first three points on
+    ``/polar/``, the golden batch on ``/batch/``, ``/lbm/start``, the
+    ``frames`` forms on ``/lbm/frame``, ``/lbm/stop`` and ``GET /stats``.
+    Returns {route: reply} with each reply's wall seconds and elapsed
+    seconds and the session id taken out ({route + " s": seconds})."""
+    out = {}
+
+    def post(route, fields, files=None, key=None):
+        t0 = time.perf_counter()
+        status, body = _post(base + route, fields, files)
+        out[f"{key or route} s"] = time.perf_counter() - t0
+        require(status == 200, f"{route} -> {status} {str(body)[:300]}")
+        body.pop("elapsed_seconds", None)
+        out[key or route] = body
+        return body
+
+    with urllib.request.urlopen(base + "/", timeout=60) as r:
+        out["/"] = json.loads(r.read())
+    post("/upload_airfoil/", {"reynolds": g["reynolds"], "alpha": g["alpha"]},
+         {"file": (g["filename"], g["dat"].encode())})
+    a = pg["polar"]["alphas"][:3]
+    post("/polar/", {"reynolds": pg["polar"]["re"], "alpha_start": a[0],
+                     "alpha_end": a[-1], "alpha_step": a[1] - a[0]},
+         {"file": ("polar.dat", precise_dat(
+             "NACA", naca4_coords(*pg["polar"]["naca"])).encode())})
+    gb = pg["batch"]
+    post("/batch/", {"reynolds": gb["re"], "alpha": gb["alpha"]},
+         [("files", (f"naca{i}.dat", precise_dat(
+             "NACA", naca4_coords(*spec)).encode()))
+          for i, spec in enumerate(gb["files"])])
+    dat = ("NACA 2412\n" + "\n".join(
+        f" {x:.6f} {y:.6f}" for x, y in naca4_coords())).encode()
+    sid = post("/lbm/start", {"alpha": 6.0},
+               {"file": ("naca2412.dat", dat)}).pop("session")
+    for i, form in enumerate(frames):
+        post("/lbm/frame", {"session": sid, **form}, key=f"/lbm/frame {i}")
+    require(post("/lbm/stop", {"session": sid}) == {"stopped": sid},
+            "/lbm/stop")
+    out["/lbm/stop"] = {"stopped": "the session"}
+    with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+        out["/stats"] = json.loads(r.read())
+    return out
+
+
+def _transport_expected() -> tuple[str, dict]:
+    """The transport ``api/server.py``'s entry takes on this machine, and
+    the versions of the packages that decide it (None: not installed)."""
+    import importlib.metadata
+    versions = {}
+    for pkg in ("fastapi", "uvicorn", "slowapi", "python-multipart"):
+        try:
+            versions[pkg] = importlib.metadata.version(pkg)
+        except importlib.metadata.PackageNotFoundError:
+            versions[pkg] = None
+    both = versions["fastapi"] and versions["uvicorn"]
+    return ("FastAPI through uvicorn" if both else "minihttp"), versions
+
+
+def phase_entry(card, ngold, pgold, make_server, stats, run_log_dir, work,
+                spf) -> dict:
+    """Phase 32b: ``python -m airfoil_tpu_torch.api.server`` as a child on
+    the card (``ENTRY_CHILD``, a free ``PORT``, no device named). It logs
+    the transport this machine's packages give it (FastAPI through uvicorn
+    where both are installed, else minihttp); ``/health`` names the card;
+    after its warm-up (the launch counts then set to 0) every route of
+    ``_served`` answers: golden (e)'s upload held as phase 16 holds it
+    (one more run log and count), and every reply equal to the in-process
+    minihttp server's on the card (the wall times aside); the frames'
+    fields finite; the requests' launches read from the child. Returns
+    {kernel: the requests' launches}."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    counts_path = os.path.join(work, "entry_counts.json")
+    log_path = os.path.join(work, "entry.log")
+    env = dict(os.environ, PORT=str(port), CHIP_SMOKE_COUNTS=counts_path)
+    env.pop("AIRFOIL_TPU_TORCH_DEVICE", None)
+    url = f"http://127.0.0.1:{port}"
+    frames = [{"fields": "speed,cp,vorticity"} for _ in range(ENTRY_FRAMES)]
+    frames[ENTRY_FRAMES // 2]["alpha"] = 9.0
+    g = ngold["upload"]
+    t_spawn = time.perf_counter()
+    with open(log_path, "w") as out:
+        child = subprocess.Popen([sys.executable, "-c", ENTRY_CHILD],
+                                 cwd=ROOT, env=env, stdout=out,
+                                 stderr=subprocess.STDOUT)
+
+    def child_log() -> str:
+        with open(log_path, errors="replace") as fh:
+            return fh.read()
+
+    def n_logs() -> int:
+        return (len(os.listdir(run_log_dir))
+                if os.path.isdir(run_log_dir) else 0)
+
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            require(child.poll() is None,
+                    f"the server entry exited: {child_log()[-2000:]}")
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except (urllib.error.URLError, ConnectionError):
+                require(time.monotonic() < deadline,
+                        "the server entry never answered /health")
+                time.sleep(0.2)
+        t_up = time.perf_counter() - t_spawn
+        transport = re.search(r"transport: (FastAPI through uvicorn|minihttp)",
+                              child_log())
+        expected, versions = _transport_expected()
+        require(transport is not None and transport.group(1) == expected,
+                f"the entry's transport is not {expected} ({versions}): "
+                f"{child_log()[-3000:]}")
+        require(health["backend"] == "cuda" and health["accelerator"]
+                and health["device"] == torch.cuda.get_device_name(0),
+                f"/health {health} does not name the card")
+        # The warm-up's last stage, then the counts set to 0.
+        deadline = time.monotonic() + ENTRY_WARMUP_S
+        while "direct solve warmup done" not in child_log():
+            require("solver warmup failed" not in child_log(),
+                    f"the entry's warm-up failed: {child_log()[-3000:]}")
+            require(child.poll() is None and time.monotonic() < deadline,
+                    f"the entry's warm-up did not end: {child_log()[-2000:]}")
+            time.sleep(0.2)
+        t_warm = time.perf_counter() - t_spawn
+        stages = re.findall(r"(\w[\w ]*) warmup done in ([\d.]+)s",
+                            child_log())
+        warm_counts = _child_counts(child, counts_path)
+        logs0, count0 = n_logs(), stats.get_analysis_count() or 0
+        got = _served(url, g, pgold, frames)
+        logs, count = n_logs(), stats.get_analysis_count()
+        req_counts = _child_counts(child, counts_path)
+        require(child.poll() is None, "the server entry exited early")
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGTERM)
+        try:
+            child.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+
+    fails = upload_fails(200, got["/upload_airfoil/"], g)
+    n_batch = len(pgold["batch"]["files"])
+    if logs != logs0 + 1 or count != count0 + 2 + n_batch:
+        fails.append(f"run logs {logs0} -> {logs}, analysis count {count0} "
+                     f"-> {count} (upload, polar, {n_batch} batch lanes)")
+    log(f"[entry] the entry's POST /upload_airfoil/ ({g['filename']}, Re "
+        f"{g['reynolds']:g}, alpha {g['alpha']:g}): "
+        f"{got['/upload_airfoil/']['coefficients']}; ensemble "
+        f"{g['ensemble']} {'ok' if not fails else 'FAIL ' + str(fails)}")
+    require(not fails, f"entry upload: {fails}")
+    ny, nx = got["/lbm/start"]["grid"]
+    for i in range(ENTRY_FRAMES):
+        fr = got[f"/lbm/frame {i}"]
+        require(fr["step"] == (i + 1) * spf, f"frame step {fr['step']}")
+        for name, field in fr["fields"].items():
+            a = np.frombuffer(base64.b64decode(field["data"]), np.float32)
+            require(a.size == ny * nx and np.isfinite(a).sum() > a.size // 2
+                    and bool((np.isnan(a) | np.isfinite(a)).all()),
+                    f"frame {i} {name}: not a finite field")
+
+    httpd = make_server(host="127.0.0.1", port=0, rate_limit=False,
+                        device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        want = _served(f"http://127.0.0.1:{httpd.server_address[1]}", g,
+                       pgold, frames)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    differ = [k for k in want if not k.endswith(" s") and k != "/stats"
+              and got[k] != want[k]]
+    require(not differ, f"the entry's replies differ from the in-process "
+            f"server's at {differ}")
+    require(got["/stats"] == {"total_analyses": count},
+            f"/stats {got['/stats']}, the counter {count}")
+    # The requests' kernels: one lbm_steps launch a frame and none tiled,
+    # the masks' cell words, and the solves' marches.
+    require(req_counts["lbm_steps"] == ENTRY_FRAMES
+            and req_counts["lbm_steps_tiled"] == 0
+            and req_counts["cell_word"] >= 1
+            and req_counts["bl_march"] >= 1
+            and req_counts["bl_march_wake"] >= 1,
+            f"the entry's requests launched {req_counts}")
+    walls = {k[:-2]: round(got[k], 4) for k in got if k.endswith(" s")}
+    frame_ms = statistics.median(walls[f"/lbm/frame {i}"]
+                                 for i in range(ENTRY_FRAMES)) * 1e3
+    log(f"[entry] python -m airfoil_tpu_torch.api.server on the card: "
+        f"{transport.group(1)} ({versions}), /health {health['device']} after "
+        f"{t_up:.1f} s, warm-up done after {t_warm:.1f} s ({stages}; its "
+        f"launches {warm_counts}); every route's reply equal to the "
+        f"in-process minihttp server's; {ENTRY_FRAMES} frames at {nx}x{ny}, "
+        f"median {frame_ms:.3f} ms; walls (s, HTTP round trip) {walls}; "
+        f"the requests' launches {req_counts} ({card})")
+    return req_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -4200,6 +4554,7 @@ def main() -> int:
 
 def run(run_log_dir: str, work: str) -> int:
     t_start = time.perf_counter()
+    t_start_wall = time.time()
     from airfoil_tpu_torch import cuda_build
     from airfoil_tpu_torch.config import LBMConfig
     from airfoil_tpu_torch.api.handlers import parse_upload
@@ -4404,6 +4759,18 @@ def run(run_log_dir: str, work: str) -> int:
     phase_flowviz(card, field)
     log(f"[headline] the models, headline and flowviz phases took "
         f"{time.perf_counter() - t_new:.1f} s")
+
+    # The native geometry library and the service's entry point.
+    from airfoil_tpu_torch import native
+    from airfoil_tpu_torch.geometry import AirfoilParseError, parse_dat_text
+    t_new = time.perf_counter()
+    phase_native(card, masks, native, LBMConfig, parse_dat_text,
+                 AirfoilParseError, files, t_start_wall)
+    entry_launches_32 = phase_entry(card, ngold, pgold, make_server, stats,
+                                    run_log_dir, work,
+                                    LBMConfig().steps_per_frame)
+    log(f"[entry] the native and entry phases took "
+        f"{time.perf_counter() - t_new:.1f} s")
     for name in KERNELS:
         keys = newton_keys.setdefault(name, {})
         keys.update({f"sharded_launches_{n}_rank{'s' if n > 1 else ''}":
@@ -4413,6 +4780,7 @@ def run(run_log_dir: str, work: str) -> int:
         if name in entry_launches:
             keys["entry_launches"] = entry_launches[name]
         keys["headline_launches"] = headline_launches[name]
+        keys["server_entry_launches"] = entry_launches_32[name]
 
     log(f"[done] every phase in {time.perf_counter() - t_start:.1f} s")
     refused = [m for m in sys.modules

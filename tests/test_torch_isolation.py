@@ -9,18 +9,22 @@ the reference package's public names.
 The first test runs a subprocess in which a meta-path finder refuses every
 ``airfoil_tpu`` and ``jax`` module; inside it every module of the port (and
 every name in its ``__all__``) and ``chip_smoke`` is imported, a 64x32
-``WindTunnel`` runs on the CPU, an upload is parsed, and two gloo ranks
+``WindTunnel`` runs on the CPU, an upload is parsed, the service's entry
+module and the native library load, and two gloo ranks
 (``parallel.launch.run``) run the sharded LBM step, each reporting that its
-own process loaded neither. The others hold each copy to the reference on
-the same inputs: exact values, coordinates and fix messages, and masks
-element for element.
+own process loaded neither. The Streamlit scripts (``ui/app.py`` and the
+pages), which import only under Streamlit, are scanned with ``ast``
+instead. The others hold each copy to the reference on the same inputs:
+exact values, coordinates and fix messages, and masks element for element.
 """
 
+import ast
 import dataclasses
 import glob
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -50,6 +54,9 @@ FORMATS = ("selig", "lednicer", "lednicer_3col", "lednicer_comment",
 # Exports of the reference that the port leaves out: the Pallas kernel,
 # whose counterpart is the port's ``lbm_steps``.
 NOT_EXPORTED = {"lbm": {"lbm_steps_pallas"}}
+# The Streamlit scripts: run by ``streamlit run``, never imported.
+UI_SCRIPTS = ("ui/app.py", "ui/pages/1_Airfoil_Analysis.py",
+              "ui/pages/2_About.py")
 CONSTANTS = ("MAX_FILE_SIZE", "MAX_POINTS", "MIN_POINTS", "MIN_REYNOLDS",
              "MAX_REYNOLDS", "MIN_ALPHA", "MAX_ALPHA", "MAX_CONCURRENT_SOLVES",
              "PORT", "ALLOWED_ORIGINS")
@@ -78,6 +85,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(
     airfoil_tpu_torch.__path__, "airfoil_tpu_torch."))
 public = 0
 for name in names:
+    if name == "airfoil_tpu_torch.ui.app":     # a Streamlit script
+        continue
     mod = importlib.import_module(name)
     for attr in getattr(mod, "__all__", ()):
         getattr(mod, attr)
@@ -92,6 +101,12 @@ wt = WindTunnel(coords, cfg=LBMConfig(nx=64, ny=32), device="cpu")
 out = wt.frame(steps=2)
 dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}" for x, y in coords)
 parsed, fixes = parse_upload("naca2412.dat", dat.encode())
+# The service's entry module (no FastAPI: no app) and the native library.
+from airfoil_tpu_torch.api import server
+from airfoil_tpu_torch.lbm import masks
+from airfoil_tpu_torch.native import parse_dat_native
+native = [server.app is None, masks.rasteriser(),
+          parse_dat_native(dat) == (parsed, fixes)]
 # Two gloo ranks of the sharded LBM step: each reports the refused modules
 # its own process loaded.
 sys.path.insert(0, "tests")
@@ -103,7 +118,7 @@ print(json.dumps({"modules": names, "loaded": loaded, "public": public,
                   "child_loaded": child_loaded,
                   "finite": bool(np.isfinite([out["cl"], out["cd"]]).all()),
                   "step": out["step"], "points": len(parsed),
-                  "fixes": fixes}))
+                  "fixes": fixes, "native": native}))
 """
 
 
@@ -142,14 +157,39 @@ def test_port_imports_nothing_of_the_reference():
                 "airfoil_tpu_torch.ui.flowviz",
                 "airfoil_tpu_torch.bench.headline",
                 "airfoil_tpu_torch.utils.compile_cache",
-                "airfoil_tpu_torch.viscous.graphs"):
+                "airfoil_tpu_torch.viscous.graphs",
+                "airfoil_tpu_torch.api.server",
+                "airfoil_tpu_torch.native",
+                "airfoil_tpu_torch.ui.app"):
         assert mod in got["modules"]
     assert got["public"] > 0
     assert got["finite"] and got["step"] == 2
+    assert got["native"] == [True, "native" if shutil.which("g++")
+                             else "numpy", bool(shutil.which("g++"))]
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
                                     for x, y in ref_naca4(2, 4, 12, 60))
     coords, fixes = ref_handlers.parse_upload("naca2412.dat", dat.encode())
     assert (got["points"], got["fixes"]) == (len(coords), fixes)
+
+
+@pytest.mark.parametrize("script", UI_SCRIPTS)
+def test_ui_script_imports_neither(script):
+    """Every import of a Streamlit script, at any depth (the pages import
+    the port's modules inside functions), names neither package."""
+    path = os.path.join(ROOT, "airfoil_tpu_torch", script)
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), path)
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add("." * node.level + (node.module or ""))
+    assert "streamlit" in imported
+    bad = sorted(m for m in imported
+                 if m.partition(".")[0] in ("airfoil_tpu", "jax", "jaxlib"))
+    assert not bad, bad
+    assert not any(m.startswith(".") for m in imported)
 
 
 @pytest.mark.parametrize("name", CONSTANTS)
@@ -182,8 +222,8 @@ def test_solver_config():
 
 
 @pytest.mark.parametrize("package", ["api", "bench", "geometry", "interop",
-                                     "inviscid", "lbm", "models", "paneling",
-                                     "parallel", "polar", "utils",
+                                     "inviscid", "lbm", "models", "native",
+                                     "paneling", "parallel", "polar", "utils",
                                      "viscous"])
 def test_package_exports(package):
     """Every name a reference package exports, the port's exports too, but

@@ -32,6 +32,7 @@ from airfoil_tpu_torch.geometry import (
     parse_dat_text,
 )
 from airfoil_tpu_torch.device import resolve_device
+from airfoil_tpu_torch.utils.profiling import span
 from airfoil_tpu_torch.utils.stats import (
     get_analysis_count,
     increment_analysis_count,
@@ -392,18 +393,28 @@ class LBMSessions:
         }
 
     def frame(self, session: str, alpha=None, u0=None, fields="speed"):
-        with self._lock:
-            wt = self._tunnels.get(session)
-            slock = self._session_locks.get(session)
-        if wt is None or slock is None:
-            raise ApiError(404, "Unknown session")
-        with slock:
+        """One frame of ``session``, traced as ``lbm.wait`` (the registry's
+        and the session's locks), the tunnel's own spans and ``lbm.fields``
+        (the fields' copies to the host and their base64)."""
+        with span("lbm.wait"):
+            with self._lock:
+                wt = self._tunnels.get(session)
+                slock = self._session_locks.get(session)
+            if wt is None or slock is None:
+                raise ApiError(404, "Unknown session")
+            slock.acquire()
+        try:
             if alpha is not None and abs(alpha - wt.state.alpha) > 1e-6:
                 wt.set_alpha(alpha)
             if u0 is not None:
                 wt.set_u0(u0)
             out = wt.frame()
+        finally:
+            slock.release()
         want = set(fields.split(","))
+        with span("lbm.fields"):
+            encoded = {k: _b64_field(v) for k, v in out["fields"].items()
+                       if k in want}
         return 200, {
             "cl": round(out["cl"], 4),
             "cd": round(out["cd"], 4),
@@ -411,8 +422,7 @@ class LBMSessions:
             "reynolds": round(out["reynolds"], 1),
             "step": out["step"],
             "alpha": out["alpha"],
-            "fields": {k: _b64_field(v) for k, v in out["fields"].items()
-                       if k in want},
+            "fields": encoded,
             "outline": np.asarray(out["outline"],
                                   np.float64).round(5).tolist(),
         }

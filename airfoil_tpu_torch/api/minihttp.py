@@ -6,10 +6,13 @@ Port of ``airfoil_tpu/api/minihttp.py`` on the standard library's
 multipart/form-data parser. ``/upload_airfoil/``, ``/polar/`` and
 ``/batch/`` (N file parts named ``files``) solve on the server's device
 under the ``solve`` rate limit and the solver lock; ``GET /stats`` reads
-the analysis counter. ``serve`` starts ``handlers.start_warmup`` (the
-kernel libraries and the solver's CUDA graphs, in a background thread),
-as the reference's does. The page at ``/app`` is the port's byte copy of
-the reference's ``ui/static_app.html``.
+the analysis counter. A request is traced as ``utils.profiling.span``s:
+``http <route>`` (``http other`` for an unknown path) around
+``http.read``, ``http.encode`` and ``http.write``. ``serve`` starts
+``handlers.start_warmup`` (the kernel libraries and the solver's CUDA
+graphs, in a background thread), as the reference's does. The page at
+``/app`` is the port's byte copy of the reference's
+``ui/static_app.html``.
 
 Run: ``python -m airfoil_tpu_torch.api.minihttp`` (port from ``$PORT``,
 device from ``$AIRFOIL_TPU_TORCH_DEVICE``, default ``cuda``).
@@ -31,10 +34,15 @@ from airfoil_tpu_torch import config
 from airfoil_tpu_torch.api import handlers
 from airfoil_tpu_torch.api.handlers import ApiError, LBMSessions
 from airfoil_tpu_torch.device import resolve_device
+from airfoil_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["serve", "make_server"]
+
+_ROUTES = ("/", "/health", "/stats", "/app", "/app/", "/upload_airfoil/",
+           "/polar/", "/batch/", "/lbm/start", "/lbm/frame", "/lbm/stop")
+_SPANS = {route: f"http {route}" for route in _ROUTES}
 
 _STATIC_APP = os.path.join(os.path.dirname(os.path.dirname(__file__)), "ui",
                            "static_app.html")
@@ -129,13 +137,15 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
 
         # ── plumbing ────────────────────────────────────────────────────
         def _send_json(self, status: int, payload: dict):
-            data = json.dumps(payload).encode()
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(data)))
-            self.send_header("Access-Control-Allow-Origin", "*")
-            self.end_headers()
-            self.wfile.write(data)
+            with span("http.encode"):
+                data = json.dumps(payload).encode()
+            with span("http.write"):
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.end_headers()
+                self.wfile.write(data)
 
         def _send_file(self, path: str, ctype: str):
             try:
@@ -157,14 +167,15 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
             return self.rfile.read(length)
 
         def _form(self):
-            ctype = self.headers.get("Content-Type", "")
-            body = self._body()
-            if ctype.startswith("multipart/form-data"):
-                return _parse_multipart(body, ctype)
-            if ctype.startswith("application/x-www-form-urlencoded"):
-                qs = parse_qs(body.decode())
-                return {k: v[0] for k, v in qs.items()}, {}
-            raise ApiError(400, f"Unsupported content type: {ctype}")
+            with span("http.read"):
+                ctype = self.headers.get("Content-Type", "")
+                body = self._body()
+                if ctype.startswith("multipart/form-data"):
+                    return _parse_multipart(body, ctype)
+                if ctype.startswith("application/x-www-form-urlencoded"):
+                    qs = parse_qs(body.decode())
+                    return {k: v[0] for k, v in qs.items()}, {}
+                raise ApiError(400, f"Unsupported content type: {ctype}")
 
         def _file_field(self, files, name="file"):
             if not files.get(name):
@@ -193,6 +204,10 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
         # ── routes ──────────────────────────────────────────────────────
         def do_GET(self):
             path = urlparse(self.path).path
+            with span(_SPANS.get(path, "http other")):
+                self._get(path)
+
+        def _get(self, path: str):
             try:
                 if path == "/":
                     if self._limited("root"):
@@ -232,6 +247,10 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
 
         def do_POST(self):
             path = urlparse(self.path).path
+            with span(_SPANS.get(path, "http other")):
+                self._post(path)
+
+        def _post(self, path: str):
             try:
                 if path in ("/upload_airfoil/", "/polar/", "/batch/",
                             "/lbm/start") and self._limited("solve"):

@@ -8,7 +8,9 @@ CUDA graph replay a frame on the card). The lattice stays on
 the device; only three scalars are read back per frame, and the fields are
 tensors until the API layer converts them. The static cell word the
 kernels read is built with the mask, at ``reset``, ``set_alpha`` and
-``load_state``, and never in a frame.
+``load_state``, and never in a frame. A frame is traced as the
+``utils.profiling.span`` ``lbm.frame`` around ``lbm.step`` and
+``lbm.diagnostics``, a slider move as ``lbm.remask``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from airfoil_tpu_torch.lbm.kernel import (cell_word, device_limits,
                                           lbm_steps, lbm_steps_tiled,
                                           prefers_tiled)
 from airfoil_tpu_torch.lbm.masks import build_mask
+from airfoil_tpu_torch.utils.profiling import span
 
 __all__ = ["LBMState", "WindTunnel"]
 
@@ -112,27 +115,34 @@ class WindTunnel:
 
     def set_alpha(self, alpha: float):
         """Re-rasterise the mask, keep the flow state."""
-        st = self.state
-        mask, outline = build_mask(self.coords, alpha, self.cfg)
-        st.solid, st.word = self._mask(mask)
-        st.outline = outline
-        st.alpha = alpha
+        with span("lbm.remask"):
+            st = self.state
+            mask, outline = build_mask(self.coords, alpha, self.cfg)
+            st.solid, st.word = self._mask(mask)
+            st.outline = outline
+            st.alpha = alpha
 
     def set_u0(self, u0: float):
         self.state.u0 = float(u0)
 
     def frame(self, steps: int | None = None) -> dict:
         """Advance one frame; return stats + field tensors."""
+        with span("lbm.frame"):
+            return self._frame(steps)
+
+    def _frame(self, steps: int | None) -> dict:
         st = self.state
         steps = self.cfg.steps_per_frame if steps is None else steps
         step = lbm_steps_tiled if self.tiled else lbm_steps
-        st.f = step(st.f, st.solid, st.u0, self.cfg.tau, steps=steps,
-                    word=st.word)
+        with span("lbm.step"):
+            st.f = step(st.f, st.solid, st.u0, self.cfg.tau, steps=steps,
+                        word=st.word)
         st.step_count += steps
 
-        cl, cd, sep, speed, cp, vort, ux, uy = frame_fields(
-            st.f, st.solid, st.u0, self.cfg.chord_cells)
-        cl, cd, sep = torch.stack([cl, cd, sep]).tolist()
+        with span("lbm.diagnostics"):
+            cl, cd, sep, speed, cp, vort, ux, uy = frame_fields(
+                st.f, st.solid, st.u0, self.cfg.chord_cells)
+            cl, cd, sep = torch.stack([cl, cd, sep]).tolist()
         self.cl_smooth = cl if self.cl_smooth is None else \
             0.9 * self.cl_smooth + 0.1 * cl
         self.cd_smooth = cd if self.cd_smooth is None else \

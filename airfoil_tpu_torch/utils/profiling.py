@@ -2,8 +2,10 @@
 
 A stage timer that waits for the device before and after the block it
 times (``torch.cuda.synchronize``, where the reference blocks on a JAX
-array), a forced fetch that waits for a tensor's device, and a
-``torch.profiler`` trace around any block, written as a Chrome trace.
+array), a forced fetch that waits for a tensor's device, a
+``torch.profiler`` trace around any block, written as a Chrome trace, and
+``span``, a named range on that trace that costs one flag read while no
+profiler runs.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["Timings", "stage_timer", "profile_trace", "device_sync"]
+__all__ = ["Timings", "stage_timer", "profile_trace", "device_sync", "span"]
 
 
 def _sync(device=None):
@@ -71,13 +74,71 @@ def stage_timer(timings: Timings, name: str, sync: bool = True):
         timings.record(name, time.perf_counter() - t0)
 
 
+class span:
+    """``with span(name):`` marks a block as a range named ``name`` on a
+    running ``torch.profiler`` trace, on the profiler's host timeline and
+    so in the clock of its CUDA device records. The profiler is the one
+    sink: ``profile_trace`` and any other ``torch.profiler`` run record
+    the spans, of every thread where the profiler records all threads.
+
+    The range is a function-scope record
+    (``torch._C._profiler._RecordFunctionFast``), a host record alone.
+    ``record_function`` opens a user annotation instead, which the
+    profiler also draws on the device's timeline over the kernels it
+    launched, where it would read as device work.
+
+    With no profiler running, entering and leaving read one module flag,
+    ``torch.autograd.profiler._is_profiler_enabled``, and do nothing
+    else: no torch operation, clock reading or record. That flag is set
+    and cleared by every profiler's start and stop and reads the same in
+    every thread (``torch.autograd._profiler_enabled()`` is thread-local:
+    it reads False in a request thread while an all-threads profiler
+    runs). A span entered while no profiler ran stays unrecorded though
+    one starts before it ends.
+    """
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        return False
+
+
+def _profile(activities):
+    """A ``torch.profiler.profile`` of every thread of the process, threads
+    started before it included, where this torch can; else of the threads
+    the profiler sees by itself."""
+    from torch.profiler import profile
+
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return profile(activities=activities, experimental_config=(
+            _ExperimentalConfig(profile_all_threads=True)))
+    except (ImportError, TypeError):
+        return profile(activities=activities)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str | None = None):
     """``torch.profiler`` trace of a block (the CPU, and the card where there
     is one), exported as a Chrome trace ``trace_<pid>_<ns>.json`` into
     ``log_dir`` (default: ``airfoil_tpu_torch_trace`` in the temporary
-    directory). Yields ``log_dir``."""
-    from torch.profiler import ProfilerActivity, profile
+    directory). Every thread is traced, those started before the block too
+    (a running server's request threads and their ``span``s). Yields
+    ``log_dir``."""
+    from torch.profiler import ProfilerActivity
 
     if log_dir is None:
         log_dir = os.path.join(tempfile.gettempdir(), "airfoil_tpu_torch_trace")
@@ -85,7 +146,7 @@ def profile_trace(log_dir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = _profile(activities)
     prof.start()
     try:
         yield log_dir

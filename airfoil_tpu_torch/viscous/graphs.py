@@ -84,6 +84,7 @@ import threading
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from airfoil_tpu_torch.utils.profiling import span
 from airfoil_tpu_torch.viscous import kernel
 
 __all__ = ["PROGRAMS", "as_input", "captures", "flatten", "lm_key",
@@ -172,9 +173,14 @@ class _Graph:
         self.done = None         # the last read-back's event
 
     def capture(self, key, body, flat: list, feedback: bool) -> None:
-        """Capture ``body`` on static copies of ``flat``. With
-        ``feedback`` the body's outputs are copied into the first static
-        inputs inside the graph, and those are its outputs."""
+        """Capture ``body`` on static copies of ``flat``, traced as the
+        span ``graphs.capture <program>``. With ``feedback`` the body's
+        outputs are copied into the first static inputs inside the graph,
+        and those are its outputs."""
+        with span(f"graphs.capture {key[0]}"):
+            self._capture(key, body, flat, feedback)
+
+    def _capture(self, key, body, flat: list, feedback: bool) -> None:
         dev = flat[0].device
         static = [torch.empty_like(t) for t in flat]
         for s, t in zip(static, flat):

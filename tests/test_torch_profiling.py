@@ -137,3 +137,29 @@ def test_profile_trace_default_dir_and_error(tmp_path, monkeypatch):
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "aten::cumsum" in names
+
+
+def test_profile_trace_records_threads_started_before_it(tmp_path):
+    """A span opened in a thread started before ``profile_trace`` (as a
+    running server's request thread is) is in the written trace."""
+    import threading
+
+    start, done = threading.Event(), threading.Event()
+
+    def request_thread():
+        start.wait(timeout=30)
+        with profiling.span("http /lbm/frame"):
+            torch.ones(8).sum()
+        done.set()
+
+    t = threading.Thread(target=request_thread)
+    t.start()
+    with profiling.profile_trace(log_dir=str(tmp_path)) as d:
+        start.set()
+        assert done.wait(timeout=30)
+    t.join(timeout=30)
+    assert not t.is_alive()
+    (path,) = _trace_files(d)
+    with open(path) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert names.count("http /lbm/frame") == 1

@@ -9,12 +9,14 @@ and JSON keys; ``/health`` reports the torch device instead of a JAX
 backend, and the solving handlers take the device to solve on.
 ``start_warmup`` builds the kernel libraries and captures the solver's
 CUDA graphs in a background thread at server start. Handlers map parsed
-inputs to ``(status_code, payload_dict)``.
+inputs to ``(status_code, payload_dict)``; ``encode_reply`` writes a
+payload as the reply's JSON bytes.
 """
 
 from __future__ import annotations
 
-import base64
+import binascii
+import json
 import logging
 import os
 import tempfile
@@ -43,8 +45,16 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "ApiError", "parse_upload", "validate_envelope", "handle_root",
     "handle_health", "handle_upload", "handle_polar", "handle_batch",
-    "handle_stats", "LBMSessions", "start_warmup",
+    "handle_stats", "LBMSessions", "start_warmup", "encode_reply",
 ]
+
+# Replies ``encode_reply`` assembled around raw field bytes: one a frame.
+raw_field_replies = 0
+_COUNT_LOCK = threading.Lock()
+# A bytes leaf's stand-in while the rest of a reply is dumped, and its
+# JSON form in the dumped text.
+_RAW = "\0"
+_RAW_JSON = json.dumps(_RAW).encode()
 
 
 class ApiError(Exception):
@@ -345,13 +355,48 @@ def handle_stats():
 
 
 def _b64_field(t: torch.Tensor) -> dict:
-    """A field tensor copied to the host as base64 float32 bytes."""
+    """A field tensor copied to the host as float32, its ``data`` the
+    base64 of the host buffer as ASCII bytes (``encode_reply`` writes them
+    as a JSON string)."""
     a = np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
     return {
         "shape": list(a.shape),
         "dtype": "float32",
-        "data": base64.b64encode(a.tobytes()).decode("ascii"),
+        "data": binascii.b2a_base64(memoryview(a).cast("B"), newline=False),
     }
+
+
+def encode_reply(payload) -> bytes:
+    """``payload`` as the reply's body: ``json.dumps(payload).encode()``
+    byte for byte, where each ``bytes`` leaf (ASCII that JSON writes as is,
+    such as base64) stands for the str it spells. Those leaves are never
+    dumped: the rest is, with a stand-in for each, and the raw bytes are
+    joined in at the stand-ins. A payload without one is dumped as is.
+    Raises ``ValueError`` where a str of a payload with such leaves is the
+    stand-in."""
+    raws = []
+
+    def stand_in(o):
+        if not isinstance(o, bytes):
+            raise TypeError(f"Object of type {type(o).__name__} "
+                            "is not JSON serializable")
+        raws.append(o)
+        return _RAW
+
+    text = json.dumps(payload, default=stand_in).encode()
+    if not raws:
+        return text
+    parts = text.split(_RAW_JSON)
+    if len(parts) != len(raws) + 1:
+        raise ValueError(f"a str of the reply dumps as {_RAW_JSON!r}, the "
+                         "stand-in of its bytes")
+    global raw_field_replies
+    with _COUNT_LOCK:
+        raw_field_replies += 1
+    chunks = [parts[0]]
+    for data, part in zip(raws, parts[1:]):
+        chunks += (b'"', data, b'"', part)
+    return b"".join(chunks)
 
 
 class LBMSessions:

@@ -8,11 +8,11 @@ multipart/form-data parser. ``/upload_airfoil/``, ``/polar/`` and
 under the ``solve`` rate limit and the solver lock; ``GET /stats`` reads
 the analysis counter. A request is traced as ``utils.profiling.span``s:
 ``http <route>`` (``http other`` for an unknown path) around
-``http.read``, ``http.encode`` and ``http.write``. ``serve`` starts
-``handlers.start_warmup`` (the kernel libraries and the solver's CUDA
-graphs, in a background thread), as the reference's does. The page at
-``/app`` is the port's byte copy of the reference's
-``ui/static_app.html``.
+``http.read``, ``http.encode`` (``handlers.encode_reply``) and
+``http.write``. ``serve`` starts ``handlers.start_warmup`` (the kernel
+libraries and the solver's CUDA graphs, in a background thread), as the
+reference's does. The page at ``/app`` is the port's byte copy of the
+reference's ``ui/static_app.html``.
 
 Run: ``python -m airfoil_tpu_torch.api.minihttp`` (port from ``$PORT``,
 device from ``$AIRFOIL_TPU_TORCH_DEVICE``, default ``cuda``).
@@ -20,7 +20,6 @@ device from ``$AIRFOIL_TPU_TORCH_DEVICE``, default ``cuda``).
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import re
@@ -138,7 +137,7 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
         # ── plumbing ────────────────────────────────────────────────────
         def _send_json(self, status: int, payload: dict):
             with span("http.encode"):
-                data = json.dumps(payload).encode()
+                data = handlers.encode_reply(payload)
             with span("http.write"):
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")

@@ -5,7 +5,8 @@ Port of ``airfoil_tpu/api/server.py``: the same routes, the same slowapi
 budget when slowapi is installed (root 10/min, health 20/min, solves
 5/min, ``/lbm/start`` 10/min), CORS from ``config.ALLOWED_ORIGINS``, at
 most ``config.MAX_CONCURRENT_SOLVES`` solves at a time, and each solve on
-a worker thread (``anyio.to_thread``). All logic lives in ``handlers``.
+a worker thread (``anyio.to_thread``). All logic lives in ``handlers``;
+``/lbm/frame`` answers ``handlers.encode_reply``'s bytes, as minihttp does.
 The device is resolved once, in ``create_app`` (``device.resolve_device``:
 ``cuda`` unless the caller or ``AIRFOIL_TPU_TORCH_DEVICE`` names another;
 ``cuda`` without a card raises), and every handler solves on it.
@@ -37,7 +38,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["HAVE_FASTAPI", "app", "create_app", "main"]
 
 try:  # pragma: no cover - optional dependency probe
-    from fastapi import FastAPI, Form, HTTPException, Request, UploadFile
+    from fastapi import (FastAPI, Form, HTTPException, Request, Response,
+                         UploadFile)
 
     HAVE_FASTAPI = True
 except ImportError:  # pragma: no cover
@@ -176,8 +178,10 @@ if HAVE_FASTAPI:
                             fields: str = Form("speed")):
             from anyio import to_thread
 
-            return await to_thread.run_sync(
-                lambda: _unwrap(sessions.frame, session, alpha, u0, fields))
+            return await to_thread.run_sync(lambda: Response(
+                handlers.encode_reply(_unwrap(sessions.frame, session,
+                                              alpha, u0, fields)),
+                media_type="application/json"))
 
         @app.post("/lbm/stop")
         async def lbm_stop(request: Request, session: str = Form(...)):

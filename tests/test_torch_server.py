@@ -14,13 +14,15 @@ CORS options, and their route coroutines, called directly with the same
 uploads (the solves on anyio worker threads), answer alike: the same JSON
 for ``/``, ``/health`` (but the fields naming the solver and device),
 ``/stats`` and a wind-tunnel session (the fields within the LBM tests'
-tolerance), and the same ``HTTPException`` for malformed uploads.
+tolerance; the port's frames a JSON ``Response`` of ``encode_reply``'s
+bytes), and the same ``HTTPException`` for malformed uploads.
 """
 
 import asyncio
 import base64
 import importlib
 import inspect
+import json
 import os
 import socket
 import subprocess
@@ -289,6 +291,17 @@ def _frames_close(got: dict, want: dict) -> None:
                                    rtol=RTOL, atol=ATOL, err_msg=name)
 
 
+def _as_json(answer):
+    """The port's ``/lbm/frame`` answer, a ``Response`` of the reply's
+    bytes (``handlers.encode_reply``, the default ``json.dumps`` form), as
+    JSON."""
+    status, out = answer
+    assert out.media_type == "application/json"
+    payload = json.loads(out.body)
+    assert json.dumps(payload).encode() == out.body
+    return status, payload
+
+
 def test_lbm_session(apps):
     replies = []
     for app in apps:
@@ -305,7 +318,9 @@ def test_lbm_session(apps):
         gone = _call(app, "POST", "/lbm/frame", session=session, alpha=None,
                      u0=None, fields="speed")
         replies.append((meta, frames, gone))
-    (meta, frames, gone), (ref_meta, ref_frames, ref_gone) = replies
+    (ref_meta, ref_frames, ref_gone), (meta, frames, gone) = replies
+    assert all(isinstance(out, stub.Response) for _, out in frames)
+    frames = [_as_json(answer) for answer in frames]
     assert meta == ref_meta
     assert gone == ref_gone == (404, "Unknown session")
     for (s, got), (r, want) in zip(frames, ref_frames):

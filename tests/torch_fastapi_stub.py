@@ -7,8 +7,8 @@ path, its coroutine and the slowapi limit wrapped round it), the startup
 hooks, the middleware with its options and the exception handlers;
 ``Form(default)`` returns a ``FormDefault`` holding its default;
 ``HTTPException`` carries ``status_code`` and ``detail``; ``UploadFile``
-holds a file name and bytes. ``modules()`` gives them by module name, for
-``sys.modules``.
+holds a file name and bytes; ``Response`` holds its body and media type.
+``modules()`` gives them by module name, for ``sys.modules``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,12 @@ class UploadFile:
 
 class Request:
     pass
+
+
+class Response:
+    def __init__(self, content: bytes = b"", media_type: str | None = None):
+        self.body = content
+        self.media_type = media_type
 
 
 class FormDefault:
@@ -127,7 +133,7 @@ def modules() -> dict[str, types.ModuleType]:
     return {
         "fastapi": module("fastapi", FastAPI=FastAPI, Form=Form,
                           HTTPException=HTTPException, Request=Request,
-                          UploadFile=UploadFile),
+                          Response=Response, UploadFile=UploadFile),
         "fastapi.middleware": module("fastapi.middleware"),
         "fastapi.middleware.cors": module("fastapi.middleware.cors",
                                           CORSMiddleware=CORSMiddleware),

@@ -16,6 +16,7 @@ payload as the reply's JSON bytes.
 from __future__ import annotations
 
 import binascii
+import dataclasses
 import json
 import logging
 import os
@@ -45,7 +46,8 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "ApiError", "parse_upload", "validate_envelope", "handle_root",
     "handle_health", "handle_upload", "handle_polar", "handle_batch",
-    "handle_stats", "LBMSessions", "start_warmup", "encode_reply",
+    "handle_stats", "LBMSessions", "lbm_config", "start_warmup",
+    "encode_reply",
 ]
 
 # Replies ``encode_reply`` assembled around raw field bytes: one a frame.
@@ -399,9 +401,33 @@ def encode_reply(payload) -> bytes:
     return b"".join(chunks)
 
 
+def lbm_config(nx=None) -> config.LBMConfig:
+    """The lattice of a new session: ``config.DEFAULT_LBM`` at the width
+    ``nx`` that a request names (text or int; None or empty keeps the
+    default), one of ``config.LBM_WIDTHS``, with ``ny = nx / 2`` and
+    ``config.lbm_steps_per_frame(nx)`` steps a frame; else an ``ApiError``
+    400."""
+    if nx in (None, ""):
+        return config.DEFAULT_LBM
+    try:
+        nx = int(nx)
+    except (TypeError, ValueError):
+        raise ApiError(400, "Field 'nx' must be an integer") from None
+    if nx not in config.LBM_WIDTHS:
+        raise ApiError(400, "nx must be one of "
+                            f"{', '.join(map(str, config.LBM_WIDTHS))}, "
+                            f"got {nx}")
+    return dataclasses.replace(
+        config.DEFAULT_LBM, nx=nx, ny=nx // 2,
+        steps_per_frame=config.lbm_steps_per_frame(nx))
+
+
 class LBMSessions:
     """Wind-tunnel session registry (thread-safe, bounded), serving every
-    session on one device."""
+    session on one device. A session's lattice is ``lbm_config``'s: the
+    default 384 x 192 at 4 steps a frame, or 2048 x 1024 at 24; the tunnel
+    steps it on the kernel that holds it (``WindTunnel``'s
+    ``prefers_tiled``)."""
 
     def __init__(self, max_sessions: int = 8, device=None):
         self.device = resolve_device(device)
@@ -413,12 +439,17 @@ class LBMSessions:
         self._session_locks: dict[str, threading.Lock] = {}
         self._max = max_sessions
 
-    def start(self, filename: str, content: bytes, alpha: float):
+    def start(self, filename: str, content: bytes, alpha: float, nx=None):
+        """Open a session on the uploaded loop at ``alpha``, on the lattice
+        of ``lbm_config(nx)``; its reply gives that lattice's ``grid``
+        (ny, nx) and ``steps_per_frame``."""
+        cfg = lbm_config(nx)
         coords, _fixes = parse_upload(filename, content)
 
         from airfoil_tpu_torch.lbm import WindTunnel
 
-        wt = WindTunnel(np.asarray(coords, np.float64), device=self.device)
+        wt = WindTunnel(np.asarray(coords, np.float64), cfg=cfg,
+                        device=self.device)
         wt.set_alpha(alpha)
         session = str(uuid.uuid4())[:8]
         with self._lock:
@@ -428,13 +459,13 @@ class LBMSessions:
                 self._session_locks.pop(dropped, None)
             self._tunnels[session] = wt
             self._session_locks[session] = threading.Lock()
-        cfg = wt.cfg
         return 200, {
             "session": session,
             "grid": [cfg.ny, cfg.nx],
             "domain": [cfg.dx0, cfg.dx1, cfg.dy0, cfg.dy1],
             "tau": cfg.tau,
             "u0": cfg.u0,
+            "steps_per_frame": cfg.steps_per_frame,
         }
 
     def frame(self, session: str, alpha=None, u0=None, fields="speed"):

@@ -6,7 +6,8 @@ Port of ``airfoil_tpu/api/minihttp.py`` on the standard library's
 multipart/form-data parser. ``/upload_airfoil/``, ``/polar/`` and
 ``/batch/`` (N file parts named ``files``) solve on the server's device
 under the ``solve`` rate limit and the solver lock; ``GET /stats`` reads
-the analysis counter. A request is traced as ``utils.profiling.span``s:
+the analysis counter; ``/lbm/start`` takes an optional ``nx``
+(``handlers.lbm_config``). A request is traced as ``utils.profiling.span``s:
 ``http <route>`` (``http other`` for an unknown path) around
 ``http.read``, ``http.encode`` (``handlers.encode_reply``) and
 ``http.write``. ``serve`` starts ``handlers.start_warmup`` (the kernel
@@ -279,8 +280,9 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
                 elif path == "/lbm/start":
                     name, content = self._file_field(files)
                     with solver_lock:
-                        out = sessions.start(name, content,
-                                             _f(fields, "alpha", 6.0))
+                        out = sessions.start(
+                            name, content, _f(fields, "alpha", 6.0),
+                            fields.get("nx"))
                 elif path == "/lbm/frame":
                     alpha = fields.get("alpha")
                     u0 = fields.get("u0")

@@ -6,7 +6,9 @@ budget when slowapi is installed (root 10/min, health 20/min, solves
 5/min, ``/lbm/start`` 10/min), CORS from ``config.ALLOWED_ORIGINS``, at
 most ``config.MAX_CONCURRENT_SOLVES`` solves at a time, and each solve on
 a worker thread (``anyio.to_thread``). All logic lives in ``handlers``;
-``/lbm/frame`` answers ``handlers.encode_reply``'s bytes, as minihttp does.
+``/lbm/frame`` answers ``handlers.encode_reply``'s bytes, as minihttp does,
+and ``/lbm/start`` takes its optional ``nx`` as text for
+``handlers.lbm_config`` to check (a 400 with a ``detail``).
 The device is resolved once, in ``create_app`` (``device.resolve_device``:
 ``cuda`` unless the caller or ``AIRFOIL_TPU_TORCH_DEVICE`` names another;
 ``cuda`` without a card raises), and every handler solves on it.
@@ -162,14 +164,15 @@ if HAVE_FASTAPI:
         @app.post("/lbm/start")
         @_limit("10/minute")
         async def lbm_start(request: Request, file: UploadFile,
-                            alpha: float = Form(6.0)):
+                            alpha: float = Form(6.0),
+                            nx: str | None = Form(None)):
             from anyio import to_thread
 
             content = await file.read()
             async with semaphore:
                 return await to_thread.run_sync(
                     lambda: _unwrap(sessions.start, file.filename, content,
-                                    alpha))
+                                    alpha, nx))
 
         @app.post("/lbm/frame")
         async def lbm_frame(request: Request, session: str = Form(...),

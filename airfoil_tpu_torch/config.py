@@ -78,3 +78,17 @@ class LBMConfig:
 
 
 DEFAULT_LBM = LBMConfig()
+
+# ── Served wind tunnel ──────────────────────────────────────────────────────
+# The widths ``/lbm/start`` opens: the viewer's DEFAULT_LBM and the
+# 2048 x 1024 large tunnel (ny is nx / 2, so cells stay square on the fixed
+# 1.84 x 0.92 domain). A session steps ``lbm_steps_per_frame(nx)`` a frame.
+LBM_WIDTHS = (384, 2048)
+
+
+def lbm_steps_per_frame(nx: int) -> int:
+    """Steps a frame of an ``nx``-wide session: the reference viewer's 4 at
+    320 wide, scaled with the width so that a frame keeps its convective
+    time, in whole rounds of 4 (the tiled kernel's): 4 at 384, 24 at
+    2048."""
+    return 4 * max(1, nx // 320)

@@ -282,6 +282,8 @@ class TestLBM:
             jax_httpd.shutdown()
             jax_httpd.server_close()
         port_meta, jax_meta = metas
+        # The port's start reply also gives the session's steps a frame.
+        assert port_meta.pop("steps_per_frame") == 4
         assert set(port_meta) == set(jax_meta)
         assert {k: v for k, v in port_meta.items() if k != "session"} == \
             {k: v for k, v in jax_meta.items() if k != "session"}

@@ -198,11 +198,15 @@ def apps(fastapi_stub):
 
 
 def _call(app, method, path, **kwargs):
-    """The route's coroutine run to its end: (200, payload), or the
+    """The route's coroutine run to its end, a ``Form`` field left out
+    taking its default as FastAPI gives it: (200, payload), or the
     ``HTTPException``'s (status, detail)."""
+    fn = app.route(method, path)
+    for p in inspect.signature(fn).parameters.values():
+        if isinstance(p.default, stub.FormDefault):
+            kwargs.setdefault(p.name, p.default.default)
     try:
-        return 200, asyncio.run(app.route(method, path)(
-            request=stub.Request(), **kwargs))
+        return 200, asyncio.run(fn(request=stub.Request(), **kwargs))
     except stub.HTTPException as e:
         return e.status_code, e.detail
 
@@ -235,7 +239,11 @@ def test_form_defaults(apps):
         return out
 
     ref, port = apps
-    assert params(port) == params(ref)
+    # The port's /lbm/start also takes the lattice (handlers.lbm_config).
+    lattice = [("nx", None)]
+    want = [(method, path, names + lattice if path == "/lbm/start" else names)
+            for method, path, names in params(ref)]
+    assert params(port) == want
 
 
 def test_startup_hook_warms_the_device(apps, monkeypatch):
@@ -321,7 +329,9 @@ def test_lbm_session(apps):
     (ref_meta, ref_frames, ref_gone), (meta, frames, gone) = replies
     assert all(isinstance(out, stub.Response) for _, out in frames)
     frames = [_as_json(answer) for answer in frames]
-    assert meta == ref_meta
+    # The port's start reply also gives the session's steps a frame.
+    assert meta == dict(ref_meta,
+                        steps_per_frame=config.LBMConfig().steps_per_frame)
     assert gone == ref_gone == (404, "Unknown session")
     for (s, got), (r, want) in zip(frames, ref_frames):
         assert s == r == 200

@@ -15,7 +15,6 @@ payload as the reply's JSON bytes.
 
 from __future__ import annotations
 
-import binascii
 import dataclasses
 import json
 import logging
@@ -29,6 +28,7 @@ import numpy as np
 import torch
 
 from airfoil_tpu_torch import config
+from airfoil_tpu_torch.api import field_b64
 from airfoil_tpu_torch.geometry import (
     AirfoilParseError,
     is_multi_element,
@@ -53,7 +53,7 @@ __all__ = [
 # Replies ``encode_reply`` assembled around raw field bytes: one a frame.
 raw_field_replies = 0
 _COUNT_LOCK = threading.Lock()
-# A bytes leaf's stand-in while the rest of a reply is dumped, and its
+# A raw leaf's stand-in while the rest of a reply is dumped, and its
 # JSON form in the dumped text.
 _RAW = "\0"
 _RAW_JSON = json.dumps(_RAW).encode()
@@ -356,30 +356,33 @@ def handle_stats():
     return 200, {"total_analyses": get_analysis_count()}
 
 
-def _b64_field(t: torch.Tensor) -> dict:
-    """A field tensor copied to the host as float32, its ``data`` the
-    base64 of the host buffer as ASCII bytes (``encode_reply`` writes them
-    as a JSON string)."""
-    a = np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float32)
-    return {
-        "shape": list(a.shape),
-        "dtype": "float32",
-        "data": binascii.b2a_base64(memoryview(a).cast("B"), newline=False),
-    }
+def _b64_fields(fields: dict) -> dict:
+    """Each float32 field tensor as its shape, dtype and ``data``, the
+    base64 of its buffer as ASCII (``field_b64.b64encode``: on a CUDA
+    tensor one launch over every field and one copy into pinned memory,
+    the strings ``memoryview`` slices of it; on a CPU tensor ``bytes``),
+    which ``encode_reply`` writes as a JSON string."""
+    tensors = [t.to(torch.float32) for t in fields.values()]
+    data = field_b64.b64encode(tensors)
+    return {k: {"shape": list(t.shape), "dtype": "float32", "data": d}
+            for k, t, d in zip(fields, tensors, data)}
 
 
 def encode_reply(payload) -> bytes:
     """``payload`` as the reply's body: ``json.dumps(payload).encode()``
-    byte for byte, where each ``bytes`` leaf (ASCII that JSON writes as is,
-    such as base64) stands for the str it spells. Those leaves are never
-    dumped: the rest is, with a stand-in for each, and the raw bytes are
-    joined in at the stand-ins. A payload without one is dumped as is.
-    Raises ``ValueError`` where a str of a payload with such leaves is the
+    byte for byte, where each raw leaf (ASCII that JSON writes as is, such
+    as base64), a ``bytes`` or a C-contiguous ``memoryview`` of format
+    ``B``, stands for the str it spells. Those leaves are never dumped:
+    the rest is, with a stand-in for each, and the raw bytes are joined in
+    at the stand-ins. A payload without one is dumped as is. Raises
+    ``TypeError`` for another memoryview, as ``json.dumps`` does, and
+    ``ValueError`` where a str of a payload with raw leaves is the
     stand-in."""
     raws = []
 
     def stand_in(o):
-        if not isinstance(o, bytes):
+        if not (isinstance(o, bytes) or isinstance(o, memoryview)
+                and o.format == "B" and o.c_contiguous):
             raise TypeError(f"Object of type {type(o).__name__} "
                             "is not JSON serializable")
         raws.append(o)
@@ -471,7 +474,7 @@ class LBMSessions:
     def frame(self, session: str, alpha=None, u0=None, fields="speed"):
         """One frame of ``session``, traced as ``lbm.wait`` (the registry's
         and the session's locks), the tunnel's own spans and ``lbm.fields``
-        (the fields' copies to the host and their base64)."""
+        (the requested fields' base64 and its copy to the host)."""
         with span("lbm.wait"):
             with self._lock:
                 wt = self._tunnels.get(session)
@@ -489,8 +492,8 @@ class LBMSessions:
             slock.release()
         want = set(fields.split(","))
         with span("lbm.fields"):
-            encoded = {k: _b64_field(v) for k, v in out["fields"].items()
-                       if k in want}
+            encoded = _b64_fields({k: v for k, v in out["fields"].items()
+                                   if k in want})
         return 200, {
             "cl": round(out["cl"], 4),
             "cd": round(out["cd"], 4),

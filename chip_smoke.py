@@ -10,14 +10,14 @@ fails (non-zero exit, no result line) if any phase fails:
 
 1. device  — a CUDA device is required; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build   — builds the three CUDA libraries (``lbm_steps``,
-   ``lbm_steps_tiled``, ``bl_march``) from ``airfoil_tpu_torch/csrc``
-   afresh, one nvcc each, in parallel (``utils/compile_cache.py``, the
-   server's warm-up's first stage), and logs ptxas's registers, stack
-   frames and spills, the resident kernel's tiling and shared memory at
-   the served grid and the tiled kernel's tile, shared memory and blocks
-   per SM; every LBM and march kernel must have a 0-byte stack frame and
-   no spills;
+2. build   — builds the CUDA libraries (``lbm_steps``,
+   ``lbm_steps_tiled``, ``bl_march``, ``field_b64``) from
+   ``airfoil_tpu_torch/csrc`` afresh, one nvcc each, in parallel
+   (``utils/compile_cache.py``, the server's warm-up's first stage), and
+   logs ptxas's registers, stack frames and spills, the resident kernel's
+   tiling and shared memory at the served grid and the tiled kernel's
+   tile, shared memory and blocks per SM; every kernel must have a 0-byte
+   stack frame and no spills;
 3. kernel  — ``cell_word`` (one launch) equal to the plain word on every
    grid and mask below; ``lbm_steps`` (the lattice on chip for a whole
    call, one cooperative launch) against the plain torch step on the card,
@@ -26,13 +26,20 @@ fails (non-zero exit, no result line) if any phase fails:
    is exactly one kernel; past its capacity (1024x512, and the 2:1 grid
    one step of 8 rows past the largest it holds) it raises ValueError
    without a launch;
+3b. field_b64 — ``api/field_b64.b64encode`` on card tensors at the served
+   frames' field shapes (three 384x192 float32 fields, one 2048x1024),
+   random payloads with NaN, +-inf, -0 and denormals: one launch a call,
+   each string byte for byte ``binascii.b2a_base64`` of the same bytes;
+   the launch timed by CUDA events and the profiler, the whole encode
+   (launch, pinned copy, wait) and the path it replaced (a pageable copy
+   and ``binascii`` a field) by the host's clock, beside the bytes' bound;
 4. server  — the port's HTTP server on the card: /health, /lbm/start,
    20 /lbm/frame posts (one changes alpha), /lbm/stop; checks every
-   decoded field, that the frames went through ``lbm_steps`` and the
-   three masks' words (start, alpha change) through ``cell_word``, and,
-   from a ``torch.profiler``
-   trace of one frame, that a frame launches exactly one LBM kernel and
-   no word kernel;
+   decoded field, that the frames went through ``lbm_steps``, their
+   fields through one ``field_b64`` launch a frame, and the three masks'
+   words (start, alpha change) through ``cell_word``, and, from a
+   ``torch.profiler`` trace of one frame, that a frame launches exactly
+   one LBM kernel, no word kernel and at most one encode kernel;
 5. tiled   — ``lbm_steps_tiled`` (K steps per launch, persistent,
    TMA-fed) against the plain step (rtol 1e-5, atol 1e-6) and, wherever
    ``lbm_steps`` holds the grid, against it (max abs 0: the two share
@@ -332,8 +339,12 @@ Each kernel's bound is the larger of the bytes its call must move (inputs
 read once, outputs written once) over the card's memory rate and the
 operations of its plain version on the same inputs (pointwise torch
 operations times elements, counted by a dispatch mode) over the card's
-float32 rate. No single PyTorch call computes an LBM step, a cell word or
-a march, so ``library_ms`` is null. ``ms`` is the CUDA-event time of a
+float32 rate; ``field_b64``'s is its bytes alone (n read, 4 ceil(n / 3)
+written) at the 2048x1024 field, its ``plain_ms`` the host path it
+replaced, and its ``viewer_*`` keys the same at the viewer's three fields
+(``encode_ms``: launch, pinned copy and wait). No single PyTorch call
+computes an LBM step, a cell word, a march or a base64, so ``library_ms``
+is null. ``ms`` is the CUDA-event time of a
 call among back-to-back calls, ``device_ms`` the profiler's device time
 of the call's kernels.
 
@@ -361,6 +372,7 @@ cases and pools, ``program_graphs``: phase 20c's), and the last line the result 
 from __future__ import annotations
 
 import base64
+import binascii
 import contextlib
 import csv
 import io
@@ -406,7 +418,13 @@ KERNELS = {   # name: (source, the TPU code it replaces)
                  "airfoil_tpu/viscous/march.py:157"),  # march_side's scan
     "bl_march_wake": ("airfoil_tpu_torch/csrc/bl_march.cu",
                       "airfoil_tpu/viscous/march.py:352"),  # march_wake's
+    # No TPU kernel: the JAX package base64-encodes a frame's fields on
+    # the host.
+    "field_b64": ("airfoil_tpu_torch/csrc/field_b64.cu", None),
 }
+# The served frames' fields a call encodes: the viewer's three 384x192
+# fields and the 2048x1024 tunnel's one (float32, row-major (NY, NX)).
+B64_FIELDS = {"viewer": [(192, 384)] * 3, "large": [(1024, 2048)]}
 # One NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes
 # per second and float32 operations per second outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -536,6 +554,12 @@ def bound(moved_bytes: int, ops: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def b64_bound(sizes) -> tuple[float, str]:
+    """(ms, "bytes"): the least time the card could take to read fields of
+    ``sizes`` bytes once and write their base64 (4 bytes a started 3)."""
+    return bound(sum(n + 4 * -(-n // 3) for n in sizes), 0)
+
+
 def kernel_name(mangled: str) -> str:
     """A mangled kernel name shortened to the function's:
     ``march_side_kernel``."""
@@ -569,7 +593,7 @@ def ptxas_usage(log_text: str) -> dict:
 
 # ── phases ──────────────────────────────────────────────────────────────────
 def phase_build(cuda_build, compile_cache, kernel):
-    """The three libraries, one nvcc each, started together
+    """The kernel libraries, one nvcc each, started together
     (``utils/compile_cache.py``, which raises here what
     ``enable_persistent_compile_cache`` would only log)."""
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
@@ -846,7 +870,8 @@ def _post(url: str, fields: dict, files=None):
         return e.code, json.loads(e.read())
 
 
-def phase_server(kernel, make_server, parse_upload, build_mask, spf):
+def phase_server(kernel, field_b64, make_server, parse_upload, build_mask,
+                 spf):
     """Drives the served /lbm/* path; returns ({kernel: its launches in the
     run}, median frame ms)."""
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
@@ -868,6 +893,7 @@ def phase_server(kernel, make_server, parse_upload, build_mask, spf):
         kernel.launches = 0
         kernel.tiled_launches = 0
         kernel.word_launches = 0
+        field_b64.launches = 0
         status, meta = _post(url + "/lbm/start", {"alpha": 6.0},
                              {"file": ("naca2412.dat", dat)})
         require(status == 200, f"/lbm/start -> {status} {meta}")
@@ -897,33 +923,38 @@ def phase_server(kernel, make_server, parse_upload, build_mask, spf):
                 require(bool(np.isfinite(a[~solid]).all()),
                         f"{name}: fluid cells must be finite")
         launches, tiled = kernel.launches, kernel.tiled_launches
-        words = kernel.word_launches
+        words, encodes = kernel.word_launches, field_b64.launches
         # More frames under the profiler, one trace each: the kernels a
         # frame launches. The counter shows one lbm_steps launch a frame; a
         # trace may drop a record, so up to three frames are traced, none
         # may show a tiled or word kernel or more than one resident one,
         # and one must show exactly one.
         for _ in range(3):
-            before = kernel.launches
+            before = kernel.launches, field_b64.launches
             with traced() as prof:
                 status, _ = _post(url + "/lbm/frame",
                                   {"session": meta["session"],
                                    "fields": "speed"})
-            require(status == 200 and kernel.launches == before + 1,
+            require(status == 200 and (kernel.launches, field_b64.launches)
+                    == (before[0] + 1, before[1] + 1),
                     f"profiled /lbm/frame -> {status}")
             ev = kernel_events(prof, "lbm_resident_kernel",
-                               "lbm_tiled_kernel", "cell_word_kernel")
+                               "lbm_tiled_kernel", "cell_word_kernel",
+                               "field_b64_kernel")
             log(f"[server] one profiled frame: {ev['all'][0]} device "
                 f"kernels, {ev['all'][1]:.1f} us; lbm_resident_kernel "
                 f"{ev['lbm_resident_kernel'][0]} "
                 f"({ev['lbm_resident_kernel'][1]:.2f} us), lbm_tiled_kernel "
                 f"{ev['lbm_tiled_kernel'][0]}, cell_word_kernel "
-                f"{ev['cell_word_kernel'][0]}")
+                f"{ev['cell_word_kernel'][0]}, field_b64_kernel "
+                f"{ev['field_b64_kernel'][0]} "
+                f"({ev['field_b64_kernel'][1]:.2f} us)")
             require(ev["lbm_resident_kernel"][0] <= 1
                     and ev["lbm_tiled_kernel"][0] == 0
-                    and ev["cell_word_kernel"][0] == 0,
-                    f"a served frame must launch one LBM kernel and no word "
-                    f"kernel: {ev}")
+                    and ev["cell_word_kernel"][0] == 0
+                    and ev["field_b64_kernel"][0] <= 1,
+                    f"a served frame must launch one LBM kernel, no word "
+                    f"kernel and one encode kernel: {ev}")
             if ev["lbm_resident_kernel"][0] == 1:
                 break
         require(ev["lbm_resident_kernel"][0] == 1,
@@ -938,15 +969,19 @@ def phase_server(kernel, make_server, parse_upload, build_mask, spf):
         thread.join(timeout=30)
     # Words: /lbm/start builds the mask twice (the tunnel's reset, then
     # the handler's set_alpha), the alpha change once more.
-    require(launches == N_FRAMES and tiled == 0 and words == 3,
-            f"{launches} lbm_steps, {tiled} tiled and {words} cell_word "
-            f"kernel calls for {N_FRAMES} frames and 3 masks")
+    require(launches == N_FRAMES and tiled == 0 and words == 3
+            and encodes == N_FRAMES,
+            f"{launches} lbm_steps, {tiled} tiled, {words} cell_word and "
+            f"{encodes} field_b64 kernel calls for {N_FRAMES} frames and 3 "
+            f"masks")
     med = statistics.median(lat)
     log(f"[server] {N_FRAMES} frames at {nx}x{ny} (alpha 6 -> 10), "
         f"{launches} lbm_steps launches, {words} cell_word launches, "
+        f"{encodes} field_b64 launches (3 fields a frame), "
         f"CL={fr['cl']} CD={fr['cd']}, median frame latency {med:.3f} ms "
         f"(HTTP round trip)")
-    return {"lbm_steps": launches, "cell_word": words}, med
+    return {"lbm_steps": launches, "cell_word": words,
+            "field_b64": encodes}, med
 
 
 def device_ms(fn, n: int, name: str) -> float:
@@ -967,6 +1002,66 @@ def device_ms(fn, n: int, name: str) -> float:
             break
     require(1 <= count <= n, f"{count} {name} records of {n} calls")
     return us / count / 1e3
+
+
+def phase_field_b64(dev, card, field_b64) -> dict:
+    """Phase 3b: ``field_b64.b64encode`` on card tensors at the served
+    frames' field shapes (``B64_FIELDS``): random float32 payloads with
+    NaN, +-inf, -0 and denormals at both ends, one launch a call, each
+    string byte for byte ``binascii.b2a_base64`` of the same tensor's
+    bytes. Then the launch alone (``ms`` by CUDA events, ``device_ms`` by
+    the profiler), the whole encode (launch, pinned copy, wait: host
+    wall), the path it replaced (``plain_ms``: a pageable ``.cpu()`` and
+    ``binascii`` a field, host wall) and the bytes' bound. Returns {shape
+    name: (ms, plain ms, device ms, encode ms, bound)}."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    specials = torch.tensor([np.nan, np.inf, -np.inf, -0.0, 1e-45, -1e-40,
+                             1.1754942e-38, 3.4028235e38], device=dev)
+    out = {}
+    for name, shapes in B64_FIELDS.items():
+        tensors = [torch.randn(s, device=dev, generator=g) * 1e3
+                   for s in shapes]
+        for t in tensors:
+            t.view(-1)[:8] = specials
+            t.view(-1)[-8:] = specials
+        before = field_b64.launches
+        got = field_b64.b64encode(tensors)
+        require(field_b64.launches == before + 1,
+                f"{name}: {field_b64.launches - before} encode launches")
+        want = [binascii.b2a_base64(t.cpu().numpy().view(np.uint8),
+                                    newline=False) for t in tensors]
+        require([bytes(d) for d in got] == want,
+                f"{name}: the card's base64 is not binascii's")
+
+        def old():
+            return [binascii.b2a_base64(t.cpu().numpy().view(np.uint8),
+                                        newline=False) for t in tensors]
+
+        def wall_ms(fn, n=30):
+            fn()
+            t = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                t.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(t)
+
+        run = lambda: field_b64._launch(tensors)
+        ms = cuda_ms(run, 200)
+        dms = device_ms(run, 20, "field_b64_kernel")
+        torch.cuda.synchronize()
+        enc = wall_ms(lambda: field_b64.b64encode(tensors))
+        plain = wall_ms(old)
+        bnd = b64_bound([t.numel() * 4 for t in tensors])
+        log(f"[field_b64] {name}: {len(shapes)} x {shapes[0][1]}x"
+            f"{shapes[0][0]} float32 fields in one launch, byte for byte "
+            f"binascii's; the launch {ms * 1e3:.2f} us (CUDA events), device "
+            f"{dms * 1e3:.2f} us (profiler), bound {bnd[0] * 1e3:.2f} us "
+            f"({bnd[1]}); the whole encode {enc:.4f} ms (launch, pinned "
+            f"copy, wait); the old path {plain:.4f} ms (pageable copy and "
+            f"binascii a field) ({card})")
+        out[name] = (ms, plain, dms, enc, bnd)
+    return out
 
 
 def phase_speed(dev, card, kernel, core, diagnostics, masks, cfg_cls,
@@ -3676,19 +3771,23 @@ ENTRY_BARS = {f: VISCOUS_BARS[f] for f in ("cl", "cd", "cm")}
 
 def launch_counts() -> dict:
     """This process's launch count of every kernel."""
+    from airfoil_tpu_torch.api import field_b64
     from airfoil_tpu_torch.lbm import kernel
     from airfoil_tpu_torch.viscous import kernel as mk
     return {"lbm_steps": kernel.launches,
             "lbm_steps_tiled": kernel.tiled_launches,
             "cell_word": kernel.word_launches,
-            "bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches}
+            "bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches,
+            "field_b64": field_b64.launches}
 
 
 def zero_launch_counts():
+    from airfoil_tpu_torch.api import field_b64
     from airfoil_tpu_torch.lbm import kernel
     from airfoil_tpu_torch.viscous import kernel as mk
     kernel.launches = kernel.tiled_launches = kernel.word_launches = 0
     mk.march_launches = mk.wake_launches = 0
+    field_b64.launches = 0
 
 
 def _ranks_synced(mesh):
@@ -4109,7 +4208,7 @@ def phase_headline(dev, card, headline, profiling, kernel, core, masks,
     zero_launch_counts()
     runs = headline.bench_lbm(device=dev)
     counts = launch_counts()
-    launches = dict.fromkeys(LBM_KERNELS, 0)
+    launches = dict.fromkeys((*LBM_KERNELS, "field_b64"), 0)
     for name, kw in headline.LBM_GRIDS:
         r = runs[name]
         used = "lbm_steps_tiled" if name == "tiled" else "lbm_steps"
@@ -4227,13 +4326,15 @@ ENTRY_CHILD = r"""
 import json, os, runpy, signal
 
 def counts(signum, frame):
+    from airfoil_tpu_torch.api import field_b64
     from airfoil_tpu_torch.lbm import kernel
     from airfoil_tpu_torch.viscous import kernel as mk
     out = {"lbm_steps": kernel.launches, "cell_word": kernel.word_launches,
            "lbm_steps_tiled": kernel.tiled_launches,
-           "bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches}
+           "bl_march": mk.march_launches, "bl_march_wake": mk.wake_launches,
+           "field_b64": field_b64.launches}
     kernel.launches = kernel.word_launches = kernel.tiled_launches = 0
-    mk.march_launches = mk.wake_launches = 0
+    mk.march_launches = mk.wake_launches = field_b64.launches = 0
     path = os.environ["CHIP_SMOKE_COUNTS"]
     with open(path + ".tmp", "w") as fh:
         json.dump(out, fh)
@@ -4511,6 +4612,7 @@ def phase_entry(card, ngold, pgold, make_server, stats, run_log_dir, work,
     # The requests' kernels: one lbm_steps launch a frame and none tiled,
     # the masks' cell words, and the solves' marches.
     require(req_counts["lbm_steps"] == ENTRY_FRAMES
+            and req_counts["field_b64"] == ENTRY_FRAMES
             and req_counts["lbm_steps_tiled"] == 0
             and req_counts["cell_word"] >= 1
             and req_counts["bl_march"] >= 1
@@ -4557,6 +4659,7 @@ def run(run_log_dir: str, work: str) -> int:
     t_start_wall = time.time()
     from airfoil_tpu_torch import cuda_build
     from airfoil_tpu_torch.config import LBMConfig
+    from airfoil_tpu_torch.api import field_b64
     from airfoil_tpu_torch.api.handlers import parse_upload
     from airfoil_tpu_torch.api.minihttp import make_server
     from airfoil_tpu_torch.device import resolve_device
@@ -4578,7 +4681,9 @@ def run(run_log_dir: str, work: str) -> int:
     k = phase_build(cuda_build, compile_cache, kernel)
     max_abs = dict(zip(("lbm_steps", "cell_word"),
                        phase_kernel(dev, kernel, core, masks, LBMConfig)))
-    launches, _ = phase_server(kernel, make_server, parse_upload,
+    b64 = phase_field_b64(dev, card, field_b64)
+    max_abs["field_b64"] = 0.0          # byte for byte, or the phase fails
+    launches, _ = phase_server(kernel, field_b64, make_server, parse_upload,
                                masks.build_mask, LBMConfig().steps_per_frame)
     max_abs["lbm_steps_tiled"] = phase_tiled(dev, kernel, core, masks,
                                              LBMConfig, k)
@@ -4590,7 +4695,9 @@ def run(run_log_dir: str, work: str) -> int:
     phase_mask_speed(dev, card, masks, LBMConfig, WindTunnel)
     bounds = {"lbm_steps": lbm_bound(dev, core, masks, LBMConfig, (384, 192)),
               "cell_word": word_bound(dev, core, masks, LBMConfig),
-              "lbm_steps_tiled": lbm_bound(dev, core, masks, LBMConfig, LARGE)}
+              "lbm_steps_tiled": lbm_bound(dev, core, masks, LBMConfig, LARGE),
+              "field_b64": b64["large"][4]}
+    times["field_b64"] = b64["large"][:3]
 
     goldens = load_goldens()
     ops = {code: naca_operator(code, dev, paneling, inviscid)
@@ -4771,10 +4878,16 @@ def run(run_log_dir: str, work: str) -> int:
                                     LBMConfig().steps_per_frame)
     log(f"[entry] the native and entry phases took "
         f"{time.perf_counter() - t_new:.1f} s")
+    viewer = b64["viewer"]
+    newton_keys["field_b64"] = {
+        "encode_ms": b64["large"][3], "viewer_ms": viewer[0],
+        "viewer_device_ms": viewer[2], "viewer_plain_ms": viewer[1],
+        "viewer_encode_ms": viewer[3], "viewer_bound_ms": viewer[4][0]}
     for name in KERNELS:
         keys = newton_keys.setdefault(name, {})
-        keys.update({f"sharded_launches_{n}_rank{'s' if n > 1 else ''}":
-                     sharded_launches[name][n] for n, _b in SHARDED_RANKS})
+        if name in sharded_launches:
+            keys.update({f"sharded_launches_{n}_rank{'s' if n > 1 else ''}":
+                         sharded_launches[name][n] for n, _b in SHARDED_RANKS})
         if name in ("lbm_steps", "lbm_steps_tiled"):
             keys["sharded_max_abs_err"] = sharded_abs
         if name in entry_launches:

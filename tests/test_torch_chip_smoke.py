@@ -167,6 +167,66 @@ def test_phase_kernel_reports_the_word_difference_it_measured(
     assert kern.word_launches == 5 and kern.launches == 1 + 2
 
 
+@pytest.mark.parametrize("name, moved", [("large", 19_573_420),
+                                         ("viewer", 2_064_384)])
+def test_b64_bound_is_the_fields_and_their_ascii(name, moved):
+    """The encode's bound reads each field once and writes its base64: a
+    2048x1024 float32 field moves 8,388,608 + 11,184,812 bytes, the
+    viewer's three 384x192 fields 3 x (294,912 + 393,216)."""
+    sizes = [4 * ny * nx for ny, nx in chip_smoke.B64_FIELDS[name]]
+    ms, by = chip_smoke.b64_bound(sizes)
+    assert by == "bytes"
+    assert ms == pytest.approx(moved / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+class _StandInEncoder:
+    """``api.field_b64`` on the CPU, counting its calls as launches, with a
+    fault to show: ``flip`` changes a byte of the last string, ``extra``
+    counts one more launch a call."""
+
+    def __init__(self, fault):
+        from airfoil_tpu_torch.api import field_b64
+        self._real, self.fault, self.launches = field_b64, fault, 0
+
+    def b64encode(self, tensors):
+        self.launches += 2 if self.fault == "extra" else 1
+        out = [memoryview(bytearray(d))
+               for d in self._real.b64encode(tensors)]
+        if self.fault == "flip":
+            out[-1][-1] ^= 1
+        return out
+
+    def _launch(self, tensors):
+        self.launches += 1
+
+
+@pytest.mark.parametrize("fault", [None, "flip", "extra"])
+def test_phase_field_b64_holds_bytes_and_launches(monkeypatch, fault):
+    """The encode phase requires one launch a call and binascii's bytes,
+    and returns each shape's times and bound (the card's timers stood in
+    for, the shapes cut small)."""
+    monkeypatch.setattr(chip_smoke, "B64_FIELDS",
+                        {"viewer": [(6, 12)] * 3, "large": [(8, 16)]})
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, n: (fn(), 0.5)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda fn, n, name: (fn(), 0.25)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    enc = _StandInEncoder(fault)
+    run = lambda: chip_smoke.phase_field_b64(torch.device("cpu"), "card",
+                                             enc)
+    if fault:
+        with pytest.raises(RuntimeError, match={
+                "flip": "not binascii's", "extra": "2 encode launches"}[fault]):
+            run()
+        return
+    out = run()
+    assert set(out) == {"viewer", "large"}
+    for name, (ms, plain, dms, whole, bnd) in out.items():
+        assert (ms, dms) == (0.5, 0.25) and plain > 0 and whole > 0
+        assert bnd == chip_smoke.b64_bound(
+            [4 * ny * nx for ny, nx in chip_smoke.B64_FIELDS[name]])
+
+
 def test_plain_march_ops_are_the_same_every_interval():
     """The side bound scales the plain march's count over a few intervals
     to the call's: every interval must count the same."""

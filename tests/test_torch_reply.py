@@ -5,13 +5,16 @@ A frame's fields carry their base64 as ASCII ``bytes``, and
 equals ``json.dumps(...).encode()`` of the same payload with each field's
 ``data`` the str ``base64.b64encode`` gives of its float32 buffer (the
 reply as it was written before), byte for byte, with solid cells (NaN)
-in the fields and NaN in the scalars. Every other reply (root, health,
-stats, an error, a polar's rows) is plain ``json.dumps(...).encode()``;
-what ``json.dumps`` refuses, or a str that is the bytes' stand-in, raises.
-Served by minihttp, a frame's ``Content-Length`` is its body's, its
-fields decode to ``render_fields`` of the session's lattice, it passes
-through ``LBMSessions.frame``, and ``raw_field_replies`` counts one a
-frame and none for ``/health``.
+in the fields and NaN in the scalars. The same holds where each ``data``
+is a ``memoryview`` slice of one buffer, as a CUDA session's frame gives
+them. Every other reply (root, health, stats, an error, a polar's rows)
+is plain ``json.dumps(...).encode()``; what ``json.dumps`` refuses (a
+memoryview that is not contiguous or not of bytes too), or a str that is
+the bytes' stand-in, raises. Served by minihttp, a frame's
+``Content-Length`` is its body's, its fields decode to ``render_fields``
+of the session's lattice, it passes through ``LBMSessions.frame``,
+``raw_field_replies`` counts one a frame and none for ``/health``, and a
+CPU session launches no encode kernel (``field_b64.launches``).
 """
 
 import base64
@@ -25,7 +28,7 @@ import pytest
 import requests
 import torch
 
-from airfoil_tpu_torch.api import handlers
+from airfoil_tpu_torch.api import field_b64, handlers
 from airfoil_tpu_torch.api.handlers import LBMSessions, encode_reply
 from airfoil_tpu_torch.api.minihttp import make_server
 from airfoil_tpu_torch.lbm.diagnostics import render_fields
@@ -68,6 +71,24 @@ def _frame(sessions, dat, fields):
     return payload, before
 
 
+def _as_views(payloads):
+    """The frame with each field's ``data`` a ``memoryview`` slice of one
+    buffer that holds every field's ASCII at 16-byte offsets."""
+    payload, before = payloads
+    fields = payload["fields"]
+    offsets, total = [], 0
+    for field in fields.values():
+        offsets.append(total)
+        total += (len(field["data"]) + 15) & ~15
+    buf = bytearray(b"#" * total)
+    for o, field in zip(offsets, fields.values()):
+        buf[o:o + len(field["data"])] = field["data"]
+    view = memoryview(buf)
+    return dict(payload, fields={
+        k: dict(v, data=view[o:o + len(v["data"])])
+        for o, (k, v) in zip(offsets, fields.items())}), before
+
+
 def _nan_scalars(payload):
     payload = dict(payload, cl=math.nan, cd=math.inf)
     return payload, dict(payload, fields={
@@ -85,6 +106,11 @@ CASES = {
     "frame_all_fields": lambda s, d: _frame(s, d, ",".join(FIELD_NAMES)),
     "frame_nan_scalars": lambda s, d: _nan_scalars(
         _frame(s, d, "speed,ux,uy")[0]),
+    "frame_speed_views": lambda s, d: _as_views(_frame(s, d, "speed")),
+    "frame_speed_ux_uy_views": lambda s, d: _as_views(
+        _frame(s, d, "speed,ux,uy")),
+    "frame_all_fields_views": lambda s, d: _as_views(
+        _frame(s, d, ",".join(FIELD_NAMES))),
     "root": lambda s, d: (handlers.handle_root()[1],) * 2,
     "health": lambda s, d: (handlers.handle_health(s.device)[1],) * 2,
     "stats": lambda s, d: ({"total_analyses": 12},) * 2,
@@ -96,11 +122,13 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_reply_bytes_equal_json_dumps(case, sessions, dat):
+    on_card = field_b64.launches
     payload, before = CASES[case](sessions, dat)
     want = json.dumps(before).encode()
     count = handlers.raw_field_replies
     assert encode_reply(payload) == want
     assert handlers.raw_field_replies - count == case.startswith("frame")
+    assert field_b64.launches == on_card
 
 
 @pytest.mark.parametrize("payload,error", [
@@ -108,13 +136,19 @@ def test_reply_bytes_equal_json_dumps(case, sessions, dat):
     ({"cl": 0.5, "data": b"AAAA"}, None),
     ({"note": "\0", "data": b"AAAA"}, ValueError),
     ({"note": "\0"}, None),
-], ids=["not_json", "raw", "str_is_the_stand_in", "str_without_raw"])
+    ({"cl": 0.5, "data": memoryview(b"#AAAA#")[1:5]}, None),
+    ({"cl": 0.5, "data": memoryview(b"AxAxAxAx")[::2]}, TypeError),
+    ({"cl": 0.5, "data": memoryview(b"AAAA").cast("I")}, TypeError),
+    ({"note": "\0", "data": memoryview(b"AAAA")}, ValueError),
+], ids=["not_json", "raw", "str_is_the_stand_in", "str_without_raw",
+        "view", "view_not_contiguous", "view_not_bytes",
+        "str_is_the_stand_in_of_a_view"])
 def test_reply_refuses(payload, error):
-    """What ``json.dumps`` refuses, and a str that is the stand-in of a
-    reply's bytes (no reply has one), raise; without them the body is the
-    dump's."""
-    text = {k: v.decode() if isinstance(v, bytes) else v
-            for k, v in payload.items()}
+    """What ``json.dumps`` refuses (a memoryview that is not contiguous or
+    not of format ``B`` too), and a str that is the stand-in of a reply's
+    bytes (no reply has one), raise; without them the body is the dump's."""
+    text = {k: bytes(v).decode() if isinstance(v, (bytes, memoryview))
+            else v for k, v in payload.items()}
     if error is None:
         assert encode_reply(payload) == json.dumps(text).encode()
     else:
@@ -151,6 +185,7 @@ def test_served_frame_reply(served, dat):
                   files={"file": ("naca2412.dat", dat)}, timeout=120)
     assert r.status_code == 200, r.text
     session = r.json()["session"]
+    on_card = field_b64.launches
     for k, alpha in enumerate((None, 8.0)):
         count = handlers.raw_field_replies
         form = {"session": session, "fields": "speed,ux,uy"}
@@ -178,4 +213,5 @@ def test_served_frame_reply(served, dat):
     assert r.content == json.dumps(
         handlers.handle_health(torch.device("cpu"))[1]).encode()
     assert handlers.raw_field_replies == count
+    assert field_b64.launches == on_card
     conn.close()

@@ -75,12 +75,13 @@ def test_compile_cache_builds_every_library(monkeypatch, per_host):
 
 
 def test_compile_cache_loaders_are_the_kernel_libraries():
+    from airfoil_tpu_torch.api import field_b64
     from airfoil_tpu_torch.lbm import kernel as lbm_kernel
     from airfoil_tpu_torch.viscous import kernel as march_kernel
 
     assert compile_cache._loaders() == {
         "lbm_steps": lbm_kernel.load, "lbm_steps_tiled": lbm_kernel.load_tiled,
-        "bl_march": march_kernel.load}
+        "bl_march": march_kernel.load, "field_b64": field_b64.load}
 
 
 def test_compile_cache_failure_is_logged(monkeypatch, caplog):

@@ -12,21 +12,22 @@ which keeps it alive. For CPU tensors each string is ``bytes``. Both give
 the same bytes.
 
 The api layer owns this kernel, as ``lbm`` and ``viscous`` own theirs:
-only the served reply base64-encodes. ``load`` binds its library beside
-theirs in ``utils/compile_cache``, so the server's warm-up builds it, and
-``launches`` counts the launches (one a call on CUDA tensors; the CPU path
-never touches it). A failed launch raises.
+only the served reply base64-encodes. Its library is one of
+``cuda_build.LIBRARIES``, so the server's warm-up builds it, and
+``launches`` counts the launches (one a call on CUDA tensors, through
+``cuda_build.launch``; the CPU path never touches it). A failed launch
+raises.
 """
 
 from __future__ import annotations
 
 import binascii
 import ctypes
-import threading
+import functools
 
 import torch
 
-from airfoil_tpu_torch.cuda_build import load_library
+from airfoil_tpu_torch import cuda_build
 
 __all__ = ["MAX_FIELDS", "b64encode", "load"]
 
@@ -34,32 +35,27 @@ __all__ = ["MAX_FIELDS", "b64encode", "load"]
 MAX_FIELDS = 5
 
 launches = 0
-_COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 
 
+@functools.cache
 def load() -> ctypes.CDLL:
     """Build (if needed) and bind the encode kernel's library."""
-    lib = load_library("field_b64", ["field_b64.cu"])
-    if lib.field_b64_launch.argtypes is None:
-        lib.field_b64_launch.argtypes = [_P, _P, _P, ctypes.c_int, _P,
-                                         ctypes.c_int, _P]
-        lib.field_b64_launch.restype = ctypes.c_int
-        lib.field_b64_error_string.argtypes = [ctypes.c_int]
-        lib.field_b64_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.bind(
+        cuda_build.load_library("field_b64"), "field_b64_error_string",
+        {"field_b64_launch": [_P, _P, _P, ctypes.c_int, _P, ctypes.c_int,
+                              _P]})
 
 
 def _b64_length(n: int) -> int:
     return 4 * ((n + 2) // 3)
 
 
-def _launch(tensors: list) -> tuple[torch.Tensor, list]:
+def _encode(tensors: list) -> tuple[torch.Tensor, list]:
     """One launch over the contiguous CUDA ``tensors`` (each 4-byte
     aligned): the device buffer of their base64 and each string's (offset,
     length) in it."""
-    global launches
     if len(tensors) > MAX_FIELDS:
         raise ValueError(f"{len(tensors)} fields for one launch of at most "
                          f"{MAX_FIELDS}")
@@ -71,20 +67,11 @@ def _launch(tensors: list) -> tuple[torch.Tensor, list]:
         spans.append((total, _b64_length(n)))
         total += (_b64_length(n) + 15) & ~15
     ascii_ = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
-    lib = load()
-    err = lib.field_b64_launch(
+    cuda_build.launch(load(), "field_b64_launch", [
         (_P * count)(*(t.data_ptr() for t in tensors)),
         (ctypes.c_longlong * count)(*nbytes),
         (ctypes.c_longlong * count)(*(o for o, _ in spans)), count,
-        ascii_.data_ptr(),
-        device.index if device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("field_b64 kernel launch failed: "
-                           f"{lib.field_b64_error_string(err).decode()}")
-    with _COUNT_LOCK:
-        launches += 1
+        ascii_.data_ptr()], device, (__name__, "launches"))
     return ascii_, spans
 
 
@@ -104,7 +91,7 @@ def b64encode(tensors) -> list:
         return [binascii.b2a_base64(
             t.reshape(-1).view(torch.uint8).numpy(), newline=False)
             for t in tensors]
-    ascii_, spans = _launch(tensors)
+    ascii_, spans = _encode(tensors)
     host = torch.empty(ascii_.numel(), dtype=torch.uint8, pin_memory=True)
     host.copy_(ascii_)                  # on the current stream, then waits
     view = memoryview(host.numpy())

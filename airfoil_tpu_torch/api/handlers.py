@@ -50,9 +50,6 @@ __all__ = [
     "encode_reply",
 ]
 
-# Replies ``encode_reply`` assembled around raw field bytes: one a frame.
-raw_field_replies = 0
-_COUNT_LOCK = threading.Lock()
 # A raw leaf's stand-in while the rest of a reply is dumped, and its
 # JSON form in the dumped text.
 _RAW = "\0"
@@ -395,9 +392,6 @@ def encode_reply(payload) -> bytes:
     if len(parts) != len(raws) + 1:
         raise ValueError(f"a str of the reply dumps as {_RAW_JSON!r}, the "
                          "stand-in of its bytes")
-    global raw_field_replies
-    with _COUNT_LOCK:
-        raw_field_replies += 1
     chunks = [parts[0]]
     for data, part in zip(raws, parts[1:]):
         chunks += (b'"', data, b'"', part)

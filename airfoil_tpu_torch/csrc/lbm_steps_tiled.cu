@@ -44,10 +44,10 @@
 // are encoded through the runtime's driver entry point (nothing more to
 // link) and cached per (pointer, shape, device).
 //
-// Tile, K and threads (chosen by lbm_compare.py's variants on the card;
-// the macros below build the others). Shared memory per block is 3 f
-// windows of 36 B a cell and 2 word windows: 32x16 tiles at K = 4 (40x24
-// windows) take 108,304 B, two blocks an SM; 64x16 at K = 4 194,320 B and
+// Tile, K and threads (chosen on the card against the variants named
+// here). Shared memory per block is 3 f windows of 36 B a cell and 2 word
+// windows: 32x16 tiles at K = 4 (40x24 windows) take 108,304 B, two
+// blocks an SM; 64x16 at K = 4 194,320 B and
 // K = 8 on 32x16 172,048 B, one block an SM, and both ran slower. The
 // window ratio (window cells over tile cells) is 1.875, 1.6875 and 3.0; a
 // cell is computed 1.31, 1.25 and 1.79 times a kept cell-step. 512
@@ -68,19 +68,10 @@
 
 namespace {
 
-#ifndef LBM_TILE_X
-#define LBM_TILE_X 32
-#endif
-#ifndef LBM_STEPS
-#define LBM_STEPS 4
-#endif
-#ifndef LBM_TILED_THREADS
-#define LBM_TILED_THREADS 512
-#endif
-constexpr int kTileX = LBM_TILE_X;
+constexpr int kTileX = 32;
 constexpr int kTileY = 16;
-constexpr int kSteps = LBM_STEPS;  // steps per launch, and the halo width in cells
-constexpr int kTiledThreads = LBM_TILED_THREADS;
+constexpr int kSteps = 4;  // steps per launch, and the halo width in cells
+constexpr int kTiledThreads = 512;
 constexpr int kWinX = kTileX + 2 * kSteps;
 constexpr int kWinY = kTileY + 2 * kSteps;
 constexpr int kWin = kWinX * kWinY;

@@ -13,20 +13,35 @@ compiler's stderr (including ``-Xptxas -v`` register and spill counts) is
 kept beside the library as ``lib<name>.log``. ``build_library`` is the
 same rule for any compiler: the native geometry library
 (``airfoil_tpu_torch/native``) builds through it with ``g++``.
+
+``LIBRARIES`` is every kernel library of the port, each with its sources
+and the nvcc flags it adds: the one place a library is declared. Each
+wrapper binds its library's C signatures (``bind``) and launches through
+``launch``, the one path of every CUDA launch: one rule for the device's
+index, the current stream, the library's error text for a failed launch
+and the count of launches, kept as ``int`` attributes of the wrapper's
+module (``lbm.kernel.launches``, ``viscous.kernel.march_launches``, ...).
+A launch made while its thread captures a CUDA graph is tallied instead
+(``tallied``) and counted at each replay (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import glob
 import os
 import shutil
 import subprocess
+import sys
 import threading
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_library",
-           "load_library", "nvcc_path"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "LIBRARIES", "NVCC_FLAGS",
+           "add_launches", "bind", "build_library", "check", "device_index",
+           "launch", "load_library", "nvcc_path", "tallied"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -34,10 +49,27 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # No --use_fast_math: divisions and square roots stay IEEE.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Library name -> (its sources in csrc/, the flags it adds to NVCC_FLAGS).
+LIBRARIES = {
+    "lbm_steps": (("lbm_steps.cu",), ()),
+    "lbm_steps_tiled": (("lbm_steps_tiled.cu",), ()),
+    # Rounding as torch's one-operation-per-kernel arithmetic: no
+    # contraction of multiply-adds into FMAs.
+    "bl_march": (("bl_march.cu",), ("-fmad=false",)),
+    "field_b64": (("field_b64.cu",), ()),
+}
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()  # guards every wrapper's launch counters
+
+
+class _Capture(threading.local):
+    counts: dict | None = None   # this thread's tally while it captures
+
+
+_CAPTURE = _Capture()
 
 
 def nvcc_path() -> str:
@@ -107,12 +139,11 @@ def build_library(name: str, compiler, flags: list[str],
     return lib_path
 
 
-def load_library(name: str, sources: list[str],
-                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build (if needed) and load ``lib<name>.so`` from ``sources``, file
-    names relative to ``csrc/``, with ``flags`` after ``NVCC_FLAGS``.
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library ``name`` of ``LIBRARIES``.
     Cached per process; different libraries build concurrently from
     different threads."""
+    sources, flags = LIBRARIES[name]
     with _LOCK:
         name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with name_lock:
@@ -123,3 +154,76 @@ def load_library(name: str, sources: list[str],
                 name, nvcc_path, [*NVCC_FLAGS, *flags], paths))
             _LIBS[name] = lib
         return lib
+
+
+def bind(lib: ctypes.CDLL, error: str, signatures: dict) -> ctypes.CDLL:
+    """``lib`` with each C function of ``signatures`` ({name: argtypes})
+    bound to return an ``int``, 0 for success, and ``error`` (``const char
+    *(int)``, the text of such an int) bound as ``lib.error_string``, which
+    ``check`` reads."""
+    for fn, argtypes in signatures.items():
+        c_fn = getattr(lib, fn)
+        c_fn.argtypes, c_fn.restype = argtypes, ctypes.c_int
+    c_error = getattr(lib, error)
+    c_error.argtypes, c_error.restype = [ctypes.c_int], ctypes.c_char_p
+    lib.error_string = c_error
+    return lib
+
+
+def device_index(device) -> int:
+    """The CUDA index that a kernel of ``device`` runs on: the device's own,
+    else the calling thread's current device."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the port's kernels run on cuda, not {device}")
+    return (torch.cuda.current_device() if device.index is None
+            else device.index)
+
+
+def check(lib: ctypes.CDLL, fn: str, err: int) -> None:
+    """Raise ``RuntimeError`` with ``lib``'s text of ``err``, the return of
+    its C function ``fn``, unless it is 0."""
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: {lib.error_string(err).decode()}")
+
+
+def launch(lib: ctypes.CDLL, fn: str, args, device,
+           counter: tuple[str, str]) -> None:
+    """Call ``lib``'s C function ``fn`` with ``args``, ``device``'s index
+    (``device_index``) and the handle of its current stream; raise on a
+    non-zero return (``check``); count one launch in ``counter``, a
+    (module name, int attribute) pair, or tally it while this thread
+    captures a graph (``tallied``)."""
+    check(lib, fn, getattr(lib, fn)(
+        *args, device_index(device),
+        torch.cuda.current_stream(device).cuda_stream))
+    tally = _CAPTURE.counts
+    if tally is not None:
+        tally[counter] = tally.get(counter, 0) + 1
+        return
+    module, attr = counter
+    owner = sys.modules[module]
+    with _COUNT_LOCK:
+        setattr(owner, attr, getattr(owner, attr) + 1)
+
+
+@contextlib.contextmanager
+def tallied():
+    """Inside, this thread's launches go to the dict it yields ({counter:
+    launches}) instead of the counters: a graph's capture, whose launches
+    run at its replays."""
+    outer = _CAPTURE.counts
+    _CAPTURE.counts = {}
+    try:
+        yield _CAPTURE.counts
+    finally:
+        _CAPTURE.counts = outer
+
+
+def add_launches(tally: dict, times: int = 1) -> None:
+    """Count ``times`` the launches of ``tally`` (a replayed graph's)."""
+    with _COUNT_LOCK:
+        for (module, attr), n in tally.items():
+            owner = sys.modules[module]
+            setattr(owner, attr, getattr(owner, attr) + n * times)

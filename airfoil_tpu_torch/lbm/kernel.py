@@ -26,21 +26,20 @@ picks one: the tiled kernel exactly where ``lbm_steps`` cannot hold the
 lattice.
 
 ``launches``, ``tiled_launches`` and ``word_launches`` count the calls that
-went to each CUDA kernel (one launch for ``lbm_steps``, one per K steps for
-``lbm_steps_tiled``); the CPU path never touches them. Read them as
-``kernel.launches`` etc. on the module.
+went to each CUDA kernel (``cuda_build.launch``); the CPU path never
+touches them. Read them as ``kernel.launches`` etc. on the module.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 
 import torch
 
-from airfoil_tpu_torch.cuda_build import load_library
+from airfoil_tpu_torch import cuda_build
+from airfoil_tpu_torch.cuda_build import device_index
 from airfoil_tpu_torch.lbm import core
 from airfoil_tpu_torch.lbm.core import edge_equilibrium, inverse_tau, lbm_step
 
@@ -51,7 +50,6 @@ __all__ = ["ResidentPlan", "cell_word", "device_limits", "lbm_steps",
 launches = 0
 tiled_launches = 0
 word_launches = 0
-_COUNT_LOCK = threading.Lock()
 
 # csrc/lbm_steps.cu's kResidentThreads and kCellsPerThread: threads of a
 # resident block, and cells each steps (its launch refuses a larger tile).
@@ -128,77 +126,52 @@ def prefers_tiled(ny: int, nx: int, sm_count: int,
     return resident_plan(ny, nx, sm_count, smem_per_block) is None
 
 
-def _bind(name: str, source: str, launch: str, argtypes) -> ctypes.CDLL:
-    lib = load_library(name, [source])
-    fn = getattr(lib, launch)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.lbm_error_string.argtypes = [ctypes.c_int]
-        lib.lbm_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.cache
 def load() -> ctypes.CDLL:
     """Build (if needed) and bind the resident kernel's library (which also
     holds the cell-word kernel)."""
-    lib = _bind("lbm_steps", "lbm_steps.cu", "lbm_steps_launch",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P])
-    if lib.lbm_cell_word_launch.argtypes is None:
-        lib.lbm_cell_word_launch.argtypes = [_P, _P, _I, _I, _I, _P]
-        lib.lbm_cell_word_launch.restype = ctypes.c_int
-        lib.lbm_device_limits.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
-        lib.lbm_device_limits.restype = ctypes.c_int
-    return lib
+    lib = cuda_build.load_library("lbm_steps")
+    return cuda_build.bind(lib, "lbm_error_string", {
+        "lbm_steps_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P],
+        "lbm_cell_word_launch": [_P, _P, _I, _I, _I, _P],
+        "lbm_device_limits": [_I, ctypes.POINTER(ctypes.c_int)]})
 
 
+@functools.cache
 def load_tiled() -> ctypes.CDLL:
     """Build (if needed) and bind the K-steps-per-launch kernel's library."""
-    lib = _bind("lbm_steps_tiled", "lbm_steps_tiled.cu",
-                "lbm_steps_tiled_launch",
-                [_P, _P, _P, _P, _I, _I, _I, _P, _F, _I, _P])
-    if lib.lbm_tiled_shape.argtypes is None:
-        lib.lbm_tiled_shape.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
-        lib.lbm_tiled_shape.restype = ctypes.c_int
-    return lib
-
-
-def _raise(lib, err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           f"{lib.lbm_error_string(err).decode()}")
-
-
-def _index(device) -> int:
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the LBM kernels run on cuda, not {device}")
-    return torch.cuda.current_device() if device.index is None \
-        else device.index
+    lib = cuda_build.load_library("lbm_steps_tiled")
+    return cuda_build.bind(lib, "lbm_error_string", {
+        "lbm_steps_tiled_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _P, _F, _I, _P],
+        "lbm_tiled_shape": [_I, ctypes.POINTER(ctypes.c_int)]})
 
 
 @functools.lru_cache(maxsize=None)
 def _limits(index: int) -> tuple[int, int]:
     lib = load()
     out = (ctypes.c_int * 2)()
-    _raise(lib, lib.lbm_device_limits(index, out), "lbm_device_limits")
+    cuda_build.check(lib, "lbm_device_limits",
+                     lib.lbm_device_limits(index, out))
     return out[0], out[1]
 
 
 def device_limits(device) -> tuple[int, int]:
     """(SM count, opt-in shared memory per block in bytes) of a CUDA
     device, the two numbers ``resident_plan`` and ``prefers_tiled`` take."""
-    return _limits(_index(device))
+    return _limits(device_index(device))
 
 
 @functools.lru_cache(maxsize=None)
 def _tiled_shape(index: int) -> dict:
     lib = load_tiled()
     shape = (ctypes.c_int * 7)()
-    _raise(lib, lib.lbm_tiled_shape(index, shape), "lbm_tiled_shape")
+    cuda_build.check(lib, "lbm_tiled_shape",
+                     lib.lbm_tiled_shape(index, shape))
     return dict(zip(("tile_x", "tile_y", "steps", "smem_bytes", "threads",
                      "blocks_per_sm", "sm_count"), shape))
 
@@ -207,7 +180,7 @@ def tiled_shape(device="cuda") -> dict:
     """The tiled kernel as compiled and as it runs on ``device``: tile width
     and height, steps per launch (the halo width), dynamic shared memory and
     threads per block, blocks per SM and the SM count."""
-    return dict(_tiled_shape(_index(device)))
+    return dict(_tiled_shape(device_index(device)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,22 +227,16 @@ def cell_word(solid: torch.Tensor) -> torch.Tensor:
     """The (NY, NX) uint16 static cell word of a (NY, NX) float32 mask
     (``core.cell_word``), by one launch of ``cell_word_kernel`` on a CUDA
     tensor."""
-    global word_launches
     if solid.dim() != 2:
         raise ValueError(f"solid must be (NY, NX), got {tuple(solid.shape)}")
     _check_mask(solid, "solid", torch.float32, solid.shape, solid.device)
     if solid.device.type == "cpu":
         return core.cell_word(solid)
-    index = _index(solid.device)
     ny, nx = solid.shape
     word = torch.empty((ny, nx), dtype=torch.uint16, device=solid.device)
-    lib = load()
-    _raise(lib, lib.lbm_cell_word_launch(
-        solid.data_ptr(), word.data_ptr(), ny, nx, index,
-        torch.cuda.current_stream(solid.device).cuda_stream),
-        "cell_word kernel launch")
-    with _COUNT_LOCK:
-        word_launches += 1
+    cuda_build.launch(load(), "lbm_cell_word_launch",
+                      [solid.data_ptr(), word.data_ptr(), ny, nx],
+                      solid.device, (__name__, "word_launches"))
     return word
 
 
@@ -281,11 +248,10 @@ def lbm_steps(f: torch.Tensor, solid: torch.Tensor, u0: float, tau: float,
     holds the exchange surfaces). ``word`` is ``cell_word(solid)``, built
     here when absent. Raises ``ValueError`` before any launch when the
     lattice is past the card's capacity (``prefers_tiled``)."""
-    global launches
     _check(f, solid, steps, word)
     if f.device.type == "cpu":
         return lbm_step(f, solid, u0, tau, steps=int(steps))
-    index = _index(f.device)
+    index = device_index(f.device)
     ny, nx = f.shape[1], f.shape[2]
     plan = _plan_on(index, ny, nx)
     if plan is None:
@@ -295,7 +261,6 @@ def lbm_steps(f: torch.Tensor, solid: torch.Tensor, u0: float, tau: float,
             f"SMs x {smem} B of shared memory); use lbm_steps_tiled")
     if word is None:
         word = cell_word(solid)
-    lib = load()
     n = f.numel()
     # One allocation and one view: each further torch op here costs the
     # served call as much host time as the launch itself.
@@ -303,14 +268,10 @@ def lbm_steps(f: torch.Tensor, solid: torch.Tensor, u0: float, tau: float,
                       device=f.device).as_strided(f.shape, f.stride())
     feq, inv_tau = _params(float(u0), float(tau))
     head = out.data_ptr()
-    _raise(lib, lib.lbm_steps_launch(
-        f.data_ptr(), head, head + 4 * n, word.data_ptr(),
-        ny, nx, int(steps), plan.tiles_x, plan.tiles_y, plan.tile_w,
-        plan.tile_h, feq, inv_tau, index,
-        torch.cuda.current_stream(f.device).cuda_stream),
-        "lbm_steps kernel launch")
-    with _COUNT_LOCK:
-        launches += 1
+    cuda_build.launch(load(), "lbm_steps_launch", [
+        f.data_ptr(), head, head + 4 * n, word.data_ptr(), ny, nx,
+        int(steps), plan.tiles_x, plan.tiles_y, plan.tile_w, plan.tile_h,
+        feq, inv_tau], f.device, (__name__, "launches"))
     return out
 
 
@@ -320,25 +281,19 @@ def lbm_steps_tiled(f: torch.Tensor, solid: torch.Tensor, u0: float,
     """Advance ``steps`` LBM steps, K per launch in shared memory; returns a
     new (9, NY, NX) tensor equal to ``lbm_steps``'s. ``word`` is
     ``cell_word(solid)``, built here when absent."""
-    global tiled_launches
     _check(f, solid, steps, word)
     if f.device.type == "cpu":
         return lbm_step(f, solid, u0, tau, steps=int(steps))
-    index = _index(f.device)
+    index = device_index(f.device)
     if word is None:
         word = cell_word(solid)
-    lib = load_tiled()
     out = torch.empty_like(f)
     scratch = (torch.empty_like(f) if steps > _tiled_shape(index)["steps"]
                else None)
     feq, inv_tau = _params(float(u0), float(tau))
-    _raise(lib, lib.lbm_steps_tiled_launch(
+    cuda_build.launch(load_tiled(), "lbm_steps_tiled_launch", [
         f.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        word.data_ptr(), f.shape[1], f.shape[2], int(steps), feq, inv_tau,
-        index,
-        torch.cuda.current_stream(f.device).cuda_stream),
-        "lbm_steps_tiled kernel launch")
-    with _COUNT_LOCK:
-        tiled_launches += 1
+        word.data_ptr(), f.shape[1], f.shape[2], int(steps), feq, inv_tau],
+        f.device, (__name__, "tiled_launches"))
     return out

@@ -3,10 +3,10 @@
 Port of ``airfoil_tpu/utils/compile_cache.py``. The reference turns on
 JAX's persistent compile cache, so that a restarted server (or the bench
 and parity CLIs) does not recompile its solver programs. The port's
-persistent compiled artefacts are its CUDA kernel libraries, each bound
-by the layer that owns its kernels (``viscous.kernel``: ``bl_march``;
-``lbm.kernel``: ``lbm_steps``, ``lbm_steps_tiled``; ``api.field_b64``:
-``field_b64``, the served frame's base64), which ``cuda_build`` keeps in ``airfoil_tpu_torch/_build/`` (git-ignored) and
+persistent compiled artefacts are its CUDA kernel libraries,
+``cuda_build.LIBRARIES`` (each bound by the layer that owns its kernels:
+``lbm.kernel``, ``viscous.kernel``, ``api.field_b64``), which
+``cuda_build`` keeps in ``airfoil_tpu_torch/_build/`` (git-ignored) and
 rebuilds only when a source or the nvcc flags change: this module builds
 them all now, in parallel, not at their first use. The Newton solve's
 other compiled programs, its CUDA graphs (``viscous.graphs``), live in
@@ -31,6 +31,8 @@ import logging
 import platform
 from concurrent.futures import ThreadPoolExecutor
 
+from airfoil_tpu_torch import cuda_build
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["enable_persistent_compile_cache", "host_fingerprint"]
@@ -50,23 +52,13 @@ def host_fingerprint() -> str:
     return hashlib.sha256(feats.encode()).hexdigest()[:12]
 
 
-def _loaders() -> dict:
-    from airfoil_tpu_torch.api import field_b64
-    from airfoil_tpu_torch.lbm import kernel as lbm_kernel
-    from airfoil_tpu_torch.viscous import kernel as march_kernel
-
-    return {"lbm_steps": lbm_kernel.load,
-            "lbm_steps_tiled": lbm_kernel.load_tiled,
-            "bl_march": march_kernel.load,
-            "field_b64": field_b64.load}
-
-
 def _build_libraries() -> None:
-    """Build (where stale) and load every kernel library, one nvcc each,
-    started together; raises the first failure."""
-    loaders = _loaders()
-    with ThreadPoolExecutor(len(loaders)) as pool:
-        for fut in [pool.submit(fn) for fn in loaders.values()]:
+    """Build (where stale) and load every library of
+    ``cuda_build.LIBRARIES``, one nvcc each, started together; raises the
+    first failure."""
+    names = list(cuda_build.LIBRARIES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(cuda_build.load_library, n) for n in names]:
             fut.result()
 
 

@@ -9,10 +9,10 @@ replays them without Python. The programs of the solver:
 - ``"lm"``: one Levenberg-Marquardt iteration (``newton._lm_body``),
   replayed ``newton_iters`` times a round (``run_lm``). Its last
   operations copy the new (zz, lam) into its own static inputs, so replay
-  k + 1 starts where replay k ended. Keyed by ``lm_key``: the device, the
-  lanes, the stations a side, the wake stations, whether the inviscid
-  operator is shared by the lanes or stacked one a lane, and the panel
-  nodes.
+  k + 1 starts where replay k ended. Keyed by ``newton.lm_key``: the
+  device, the lanes, the stations a side, the wake stations, whether the
+  inviscid operator is shared by the lanes or stacked one a lane, and the
+  panel nodes.
 - ``"direct"``: the whole direct solve, ``coupled.solve_viscous``
   (``airfoil_tpu/viscous/coupled.py:294``), its ``coupling_iters`` + 1
   passes in one graph.
@@ -61,10 +61,12 @@ call's numbers tensors before the body).
   outputs' read-back, and each call's read-back is an event the next
   call's stream waits for: two calls of one key never share the static
   buffers, on any streams.
-- **March launches.** ``viscous.kernel`` counts its launches in Python,
-  which a replay does not run: the launches of a capture (and of its warm
-  call) are tallied instead of counted, and every replay adds its graph's
-  tally to ``kernel.march_launches`` and ``kernel.wake_launches``.
+- **Kernel launches.** ``cuda_build.launch`` counts the hand-written
+  kernels' launches in Python, which a replay does not run: the launches
+  of a capture (and of its warm call) are tallied instead of counted
+  (``cuda_build.tallied``), and every replay adds its graph's tally to
+  the counters (``cuda_build.add_launches``), such as
+  ``viscous.kernel.march_launches`` and ``wake_launches``.
 - **Devices.** On a CUDA tensor a capture or replay failure raises;
   nothing falls back to eager dispatch. On a CPU tensor there are no
   graphs: ``run`` and ``run_lm`` call the body eagerly (``_eager_lm`` is
@@ -84,11 +86,11 @@ import threading
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from airfoil_tpu_torch import cuda_build
 from airfoil_tpu_torch.utils.profiling import span
-from airfoil_tpu_torch.viscous import kernel
 
-__all__ = ["PROGRAMS", "as_input", "captures", "flatten", "lm_key",
-           "pool_bytes", "replays", "run", "run_lm", "total", "unflatten"]
+__all__ = ["PROGRAMS", "as_input", "captures", "flatten", "pool_bytes",
+           "replays", "run", "run_lm", "total", "unflatten"]
 
 PROGRAMS = ("lm", "direct", "prepare", "reproject", "settle", "answer",
             "operator", "inviscid", "frame")
@@ -99,13 +101,6 @@ pool_bytes: dict = {}   # (program, key) -> the graph pool's reserved bytes
 _GRAPHS: dict = {}      # (program, key) -> _Graph
 _LOCK = threading.Lock()            # guards _GRAPHS and the counters
 _CAPTURE_LOCK = threading.Lock()    # one capture at a time
-
-
-def lm_key(system) -> tuple:
-    """(device, lanes, stations a side, wake stations, operator shared by
-    the lanes, panel nodes) of a ``newton._System``."""
-    return (system.vt0.device, system.lanes, system.m_s, system.n_w,
-            system.shared, system.op.pan.s.shape[-1])
 
 
 def as_input(v, like: torch.Tensor) -> torch.Tensor:
@@ -169,7 +164,7 @@ class _Graph:
         self.static: list = []
         self.outs: list = []     # the graph's output tensors
         self.spec = None         # their structure
-        self.launches: dict = {}     # march launches of one replay
+        self.launches: dict = {}     # kernel launches of one replay
         self.done = None         # the last read-back's event
 
     def capture(self, key, body, flat: list, feedback: bool) -> None:
@@ -189,9 +184,9 @@ class _Graph:
         with _CAPTURE_LOCK:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), kernel.tallied():
+            with torch.cuda.stream(side), cuda_build.tallied():
                 body(static)
-            with kernel.tallied() as launches, torch.cuda.graph(
+            with cuda_build.tallied() as launches, torch.cuda.graph(
                     graph, stream=side, capture_error_mode="thread_local"):
                 out = body(static)
                 if feedback:
@@ -225,7 +220,7 @@ class _Graph:
             s.copy_(t)
         for _ in range(iters):
             self.graph.replay()
-        kernel.add_launches(self.launches, iters)
+        cuda_build.add_launches(self.launches, iters)
         out = [o.clone() for o in self.outs]
         self.done = torch.cuda.Event()
         self.done.record(stream)

@@ -13,46 +13,39 @@ and a failed build or launch raises; there is no fallback.
 kernel (``march_side_kernel``), ``wake_launches`` the ``march_wake`` ones
 (``march_wake_kernel``); the CPU path touches neither. Read them on the
 module (``kernel.march_launches``). A launch captured into a CUDA graph
-(``viscous.graphs``) is tallied, not counted (``tallied``), and counted at
-each replay of the graph (``add_launches``).
+(``viscous.graphs``) is counted at each replay of the graph
+(``cuda_build.launch``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
+import functools
 
 import torch
 
-from airfoil_tpu_torch.cuda_build import load_library
+from airfoil_tpu_torch import cuda_build
 from airfoil_tpu_torch.device import DTYPE
 from airfoil_tpu_torch.viscous import march as plain
 from airfoil_tpu_torch.viscous.march import BLState, _as_lanes, _lanes
 
-__all__ = ["load", "march_side", "march_wake"]
+__all__ = ["SIGNATURES", "load", "march_side", "march_wake"]
 
 march_launches = 0
 wake_launches = 0
-_COUNT_LOCK = threading.Lock()
-_TALLY = threading.local()     # this thread's tally while it captures
-# Rounding as torch's one-operation-per-kernel arithmetic: no contraction
-# of multiply-adds into FMAs.
-_FLAGS = ("-fmad=false",)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# bl_march.cu's C interface: bound to this checkout's library by ``load``
+# and to an older build of the same source by ``march_compare.py``.
+SIGNATURES = {"bl_march_side_launch": [_P] * 15 + [_I, _I, _I, _P],
+              "bl_march_wake_launch": [_P] * 9 + [_I, _I, _I, _P]}
 
 
+@functools.cache
 def load() -> ctypes.CDLL:
     """Build (if needed) and bind the march kernel's library."""
-    lib = load_library("bl_march", ["bl_march.cu"], _FLAGS)
-    if lib.bl_march_side_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.bl_march_side_launch.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
-        lib.bl_march_side_launch.restype = i32
-        lib.bl_march_wake_launch.argtypes = [ptr] * 9 + [i32, i32, i32, ptr]
-        lib.bl_march_wake_launch.restype = i32
-        lib.bl_error_string.argtypes = [i32]
-        lib.bl_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.bind(cuda_build.load_library("bl_march"),
+                           "bl_error_string", SIGNATURES)
 
 
 def _check(name: str, arrays: dict, shape) -> None:
@@ -70,40 +63,6 @@ def _check(name: str, arrays: dict, shape) -> None:
         raise ValueError(f"{name}: inputs on several devices {devices}")
     if shape[1] < 1:
         raise ValueError(f"{name}: needs at least one station")
-
-
-def _launch(lib, fn: str, args, device: torch.device, counter: str) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(*args, device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} failed: "
-                           f"{lib.bl_error_string(err).decode()}")
-    tally = getattr(_TALLY, "counts", None)
-    if tally is not None:
-        tally[counter] = tally.get(counter, 0) + 1
-        return
-    with _COUNT_LOCK:
-        globals()[counter] += 1
-
-
-@contextlib.contextmanager
-def tallied():
-    """Inside, this thread's launches go to the dict it yields ({counter
-    name: launches}) instead of the counters: a graph's capture, whose
-    launches run at its replays."""
-    outer = getattr(_TALLY, "counts", None)
-    _TALLY.counts = {}
-    try:
-        yield _TALLY.counts
-    finally:
-        _TALLY.counts = outer
-
-
-def add_launches(tally: dict, times: int = 1) -> None:
-    """Count ``times`` the launches of ``tally`` (a replayed graph's)."""
-    with _COUNT_LOCK:
-        for counter, n in tally.items():
-            globals()[counter] += n * times
 
 
 def march_side(s, ue, x, nu, n_crit=9.0, x_forced_transition=1.0
@@ -125,8 +84,8 @@ def march_side(s, ue, x, nu, n_crit=9.0, x_forced_transition=1.0
     x_tr = torch.empty(lanes, dtype=DTYPE, device=dev)
     ptrs = [a.data_ptr() for a in (s2, ue2, x2, *params, *floats, *flags,
                                    x_tr)]
-    _launch(load(), "bl_march_side_launch", ptrs + [lanes, m], dev,
-            "march_launches")
+    cuda_build.launch(load(), "bl_march_side_launch", ptrs + [lanes, m], dev,
+                      (__name__, "march_launches"))
     bl = BLState(*floats, *flags, x_transition=x_tr)
     if one:
         bl = BLState(*(a[0] for a in bl))
@@ -147,8 +106,8 @@ def march_wake(s, ue, nu, theta0, dstar0, ctau0):
     params = [_lanes(p, s2) for p in (nu, theta0, dstar0, ctau0)]
     outs = [torch.empty_like(s2) for _ in range(3)]
     ptrs = [a.data_ptr() for a in (s2, ue2, *params, *outs)]
-    _launch(load(), "bl_march_wake_launch", ptrs + [lanes, m], dev,
-            "wake_launches")
+    cuda_build.launch(load(), "bl_march_wake_launch", ptrs + [lanes, m], dev,
+                      (__name__, "wake_launches"))
     if one:
         outs = [a[0] for a in outs]
     return tuple(outs)

@@ -699,8 +699,7 @@ class _System:
         this system's shape key's graph of one iteration, on the CPU by
         calling the same body eagerly (``viscous.graphs.run_lm``)."""
         return graphs.run_lm(
-            graphs.lm_key(self), functools.partial(_lm_body, self.m_s,
-                                                   self.n_w),
+            lm_key(self), functools.partial(_lm_body, self.m_s, self.n_w),
             [zz, lam, *self.lm_tensors()], iters)
 
     def reproject_n(self, zz):
@@ -734,6 +733,14 @@ class _System:
         zw = zw.clone()
         zw[..., 3] = 0.0
         return _pack(z2[0], z2[1], zw)
+
+
+def lm_key(system: _System) -> tuple:
+    """The shape key of a system's graphs (``viscous.graphs``): (device,
+    lanes, stations a side, wake stations, operator shared by the lanes,
+    panel nodes)."""
+    return (system.vt0.device, system.lanes, system.m_s, system.n_w,
+            system.shared, system.op.pan.s.shape[-1])
 
 
 class _LMTensors(NamedTuple):
@@ -1107,7 +1114,7 @@ def _lm_rounds(system, zz_i, newton_iters: int, outer_rounds: int):
     best_rms = rms_prev = _lane_vals(torch.inf, p, zz_i)
     done = torch.zeros(p, dtype=torch.bool, device=zz_i.device)
     rounds = torch.zeros(p, dtype=torch.int32, device=zz_i.device)
-    key = graphs.lm_key(system)
+    key = lm_key(system)
     shape = (system.m_s, system.n_w)
     # What each body reads of the system (None for what it does not).
     t_settle = system.lm_tensors()._replace(l_mat=None)
@@ -1206,7 +1213,7 @@ def _lane_answer(system, sc, warm_state, zz, rms):
         for side in ("bl_u", "bl_l")})
     flat, spec = graphs.flatten((t, sc, warm_state, zz, rms))
     res, fb, (xtr_u, xtr_l) = graphs.run(
-        "answer", graphs.lm_key(system), functools.partial(
+        "answer", lm_key(system), functools.partial(
             _answer_body, spec, system.m_s, system.n_w), flat)
     return res, fb, (zz, xtr_u, xtr_l)
 

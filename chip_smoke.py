@@ -593,16 +593,15 @@ def ptxas_usage(log_text: str) -> dict:
 
 # ── phases ──────────────────────────────────────────────────────────────────
 def phase_build(cuda_build, compile_cache, kernel):
-    """The kernel libraries, one nvcc each, started together
-    (``utils/compile_cache.py``, which raises here what
+    """The kernel libraries of ``cuda_build.LIBRARIES``, one nvcc each,
+    started together (``utils/compile_cache.py``, which raises here what
     ``enable_persistent_compile_cache`` would only log)."""
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
-    loaders = compile_cache._loaders()
     t0 = time.perf_counter()
     compile_cache._build_libraries()
-    log(f"[build] {', '.join(loaders)} built and loaded in "
+    log(f"[build] {', '.join(cuda_build.LIBRARIES)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name in loaders:
+    for name in cuda_build.LIBRARIES:
         path = os.path.join(cuda_build.BUILD_DIR, f"lib{name}.log")
         with open(path) as fh:
             usage = ptxas_usage(fh.read())
@@ -1046,7 +1045,7 @@ def phase_field_b64(dev, card, field_b64) -> dict:
                 t.append((time.perf_counter() - t0) * 1e3)
             return statistics.median(t)
 
-        run = lambda: field_b64._launch(tensors)
+        run = lambda: field_b64._encode(tensors)
         ms = cuda_ms(run, 200)
         dms = device_ms(run, 20, "field_b64_kernel")
         torch.cuda.synchronize()
@@ -2747,7 +2746,7 @@ def lm_iteration_times(newton, graphs, system, zz, lam) -> dict:
     (median, synchronised), device time (profiler's kernel sum) and, for
     the graph, its replay by CUDA events."""
     system.run_lm(zz, lam, 1)
-    graph = graphs._GRAPHS["lm", graphs.lm_key(system)].graph
+    graph = graphs._GRAPHS["lm", newton.lm_key(system)].graph
     out = {"graph_wall_ms": _median_s(lambda: system.run_lm(zz, lam, 1),
                                       10) * 1e3,
            "graph_replay_ms": cuda_ms(graph.replay, 10)}

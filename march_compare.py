@@ -9,8 +9,8 @@ commit's::
         | tar -x -C scratch/old --strip-components=2
     python3 march_compare.py scratch/old
 
-1. build — both sources, one nvcc each, in parallel, with the wrapper's
-   flags; ptxas's registers, stack frames and spills of each kernel;
+1. build — both sources, one nvcc each, in parallel, with ``bl_march``'s
+   flags in ``cuda_build.LIBRARIES``; ptxas's registers, stack frames and spills of each kernel;
 2. bits  — every march call of ``chip_smoke.py``'s march phase goes through
    the old and the new kernel, and the outputs must be equal bit for bit
    (NaNs included);
@@ -51,21 +51,20 @@ LANES = (132, 264, 528, 792, 1056)
 N_ROUNDS = 30
 
 
-def build(name: str, csrc: str, flags) -> tuple:
+def build(name: str, csrc: str) -> tuple:
     """Builds ``csrc``'s march library as ``name``; (library, ptxas usage)."""
+    from airfoil_tpu_torch.viscous import kernel as mk
+
     d = os.path.join(OUT, name)
     shutil.copytree(csrc, d, ignore=shutil.ignore_patterns("*.so", "*.o"))
     so = os.path.join(d, "libbl_march.so")
+    sources, flags = cuda_build.LIBRARIES["bl_march"]
     proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
-                           *flags, "-o", so, os.path.join(d, "bl_march.cu")],
+                           *flags, "-o", so,
+                           *(os.path.join(d, s) for s in sources)],
                           capture_output=True, text=True)
     cs.require(proc.returncode == 0, f"{name}: nvcc failed\n{proc.stderr}")
-    lib = ctypes.CDLL(so)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bl_march_side_launch.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
-    lib.bl_march_wake_launch.argtypes = [ptr] * 9 + [i32, i32, i32, ptr]
-    lib.bl_error_string.argtypes = [i32]
-    lib.bl_error_string.restype = ctypes.c_char_p
+    lib = cuda_build.bind(ctypes.CDLL(so), "bl_error_string", mk.SIGNATURES)
     return lib, cs.ptxas_usage(proc.stderr)
 
 
@@ -93,8 +92,7 @@ def main(old_dir: str) -> int:
     os.makedirs(OUT)
     sources = {"old": old_dir, "new": cuda_build.CSRC_DIR}
     with ThreadPoolExecutor(len(sources)) as pool:
-        futs = {n: pool.submit(build, n, d, mk._FLAGS)
-                for n, d in sources.items()}
+        futs = {n: pool.submit(build, n, d) for n, d in sources.items()}
         built = {n: f.result() for n, f in futs.items()}
     for name, (_, use) in built.items():
         cs.log(f"[build] {name}: ptxas {json.dumps(use)}")

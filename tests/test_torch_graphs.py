@@ -13,7 +13,7 @@ eagerly, at 64 panels, 32 stations a side and 8 wake stations.
   the iteration's output. The states are seeded random walks (as in
   ``test_torch_newton.py``), the trips pulled forward so that the trip
   coordinates matter, and the first step from them is accepted.
-- The key (``graphs.lm_key``): polars of 5 and 7 points (both in bucket
+- The key (``newton.lm_key``): polars of 5 and 7 points (both in bucket
   8) share one; 1 and 8 lanes, two station counts, a shared and a stacked
   operator, two panel counts do not.
 """
@@ -162,7 +162,7 @@ def test_key():
         if (p, m_s) not in zeros:
             s_m = 2 * m_s + N_W
             zeros[p, m_s] = torch.zeros(p, s_m, s_m)
-        return graphs.lm_key(make_system(p, op=op, m_s=m_s,
+        return newton.lm_key(make_system(p, op=op, m_s=m_s,
                                          l_mat=zeros[p, m_s]))
 
     k5, k7 = (key(sweep._bucket_size(n)) for n in (5, 7))

@@ -27,8 +27,9 @@ round (``_reproject_body``, ``_settle_body``) and answer
   the trip; the set-up's adds ``warm_iters`` and whether a start state is
   given to the LM key.
 - The layer's plumbing: ``flatten``/``unflatten`` round trips and refuses
-  numbers; a launch inside ``kernel.tallied`` is tallied, not counted,
-  and ``add_launches`` counts a replay's tally.
+  numbers; a launch inside ``cuda_build.tallied`` is tallied, not
+  counted, and ``add_launches`` counts a replay's tally, for any
+  kernel's counter (the march's and an LBM kernel's).
 
 The plain march on a CPU costs seconds a call, so every test but one
 marches with a stand-in (``_side_stand_in``, ``_wake_stand_in``): cheap,
@@ -47,7 +48,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from airfoil_tpu_torch import cuda_build
 from airfoil_tpu_torch.inviscid import build_operator
+from airfoil_tpu_torch.lbm import kernel as lbm_kernel
 from airfoil_tpu_torch.models import naca4
 from airfoil_tpu_torch.numerics import maximum, minimum
 from airfoil_tpu_torch.paneling import panel_geometry, repanel
@@ -560,7 +563,7 @@ def test_flatten_round_trips():
 def test_launches_in_a_capture_are_tallied(monkeypatch):
     class Lib:
         @staticmethod
-        def bl_march_side_launch(*args):
+        def k_launch(*args):
             return 0
 
     class Stream:
@@ -569,15 +572,21 @@ def test_launches_in_a_capture_are_tallied(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
     monkeypatch.setattr(kernel, "march_launches", 0)
     monkeypatch.setattr(kernel, "wake_launches", 0)
+    monkeypatch.setattr(lbm_kernel, "tiled_launches", 0)
+    side, wake, tiled = ((kernel.__name__, "march_launches"),
+                         (kernel.__name__, "wake_launches"),
+                         (lbm_kernel.__name__, "tiled_launches"))
     dev = torch.device("cuda", 0)
-    launch = functools.partial(kernel._launch, Lib, "bl_march_side_launch",
-                               [], dev)
-    launch("march_launches")
-    with kernel.tallied() as tally:
-        launch("march_launches")
-        launch("march_launches")
-        launch("wake_launches")
-    assert tally == {"march_launches": 2, "wake_launches": 1}
-    assert (kernel.march_launches, kernel.wake_launches) == (1, 0)
-    kernel.add_launches(tally, 3)
-    assert (kernel.march_launches, kernel.wake_launches) == (7, 3)
+    launch = functools.partial(cuda_build.launch, Lib, "k_launch", [], dev)
+    launch(side)
+    with cuda_build.tallied() as tally:
+        launch(side)
+        launch(side)
+        launch(wake)
+        launch(tiled)
+    assert tally == {side: 2, wake: 1, tiled: 1}
+    counts = lambda: (kernel.march_launches, kernel.wake_launches,
+                      lbm_kernel.tiled_launches)
+    assert counts() == (1, 0, 0)
+    cuda_build.add_launches(tally, 3)
+    assert counts() == (7, 3, 3)

@@ -4,9 +4,10 @@
 headline bench's warm-up, each against what the reference does.
 
 - ``host_fingerprint`` equals the reference's on this host;
-  ``enable_persistent_compile_cache`` builds every kernel library (the
-  loaders recorded), with or without ``per_host``, and a failed build is
-  logged, not raised (as the reference's failure is).
+  ``enable_persistent_compile_cache`` builds every kernel library of
+  ``cuda_build.LIBRARIES`` (the builds recorded), with or without
+  ``per_host``, each wrapper binds its own entry of the table, and a
+  failed build is logged, not raised (as the reference's failure is).
 - ``warm_polar_kernels`` has the reference's parameters and defaults
   (and ``device``), and solves at the bucket's shapes: the per-point pass
   over the bucket's lanes (alphas -10..20, Re 1e6, on ``n_coords`` padded
@@ -45,6 +46,7 @@ import torch
 
 from airfoil_tpu.polar import sweep as ref_sweep
 from airfoil_tpu.utils import compile_cache as ref_cc
+from airfoil_tpu_torch import cuda_build
 from airfoil_tpu_torch.api import handlers, minihttp
 from airfoil_tpu_torch.bench import headline
 from airfoil_tpu_torch.models import naca4
@@ -67,29 +69,50 @@ def test_compile_cache_signature():
 @pytest.mark.parametrize("per_host", [False, True])
 def test_compile_cache_builds_every_library(monkeypatch, per_host):
     built = []
-    monkeypatch.setattr(compile_cache, "_loaders", lambda: {
-        name: (lambda n=name: built.append(n))
-        for name in ("lbm_steps", "lbm_steps_tiled", "bl_march")})
+    monkeypatch.setattr(cuda_build, "load_library", built.append)
     compile_cache.enable_persistent_compile_cache(per_host=per_host)
-    assert sorted(built) == ["bl_march", "lbm_steps", "lbm_steps_tiled"]
+    assert sorted(built) == sorted(cuda_build.LIBRARIES) == [
+        "bl_march", "field_b64", "lbm_steps", "lbm_steps_tiled"]
 
 
-def test_compile_cache_loaders_are_the_kernel_libraries():
+class _Library:
+    """A loaded library's stand-in: any C function, its types settable."""
+
+    def __getattr__(self, fn):
+        c_fn = SimpleNamespace()
+        setattr(self, fn, c_fn)
+        return c_fn
+
+
+def test_compile_cache_loaders_are_the_kernel_libraries(monkeypatch):
+    """Each wrapper's ``load`` binds the library of its entry in the table
+    that the cache builds."""
     from airfoil_tpu_torch.api import field_b64
     from airfoil_tpu_torch.lbm import kernel as lbm_kernel
-    from airfoil_tpu_torch.viscous import kernel as march_kernel
 
-    assert compile_cache._loaders() == {
-        "lbm_steps": lbm_kernel.load, "lbm_steps_tiled": lbm_kernel.load_tiled,
-        "bl_march": march_kernel.load, "field_b64": field_b64.load}
+    asked = []
+
+    def load_library(name):
+        asked.append(name)
+        return _Library()
+
+    monkeypatch.setattr(cuda_build, "load_library", load_library)
+    loaders = {"lbm_steps": lbm_kernel.load,
+               "lbm_steps_tiled": lbm_kernel.load_tiled,
+               "bl_march": march_kernel.load, "field_b64": field_b64.load}
+    for name, load in loaders.items():
+        lib = load.__wrapped__()        # past the wrapper's cache
+        assert asked[-1] == name
+        assert lib.error_string.restype is cuda_build.ctypes.c_char_p
+    assert sorted(asked) == sorted(cuda_build.LIBRARIES)
 
 
 def test_compile_cache_failure_is_logged(monkeypatch, caplog):
-    def broken():
-        raise RuntimeError("nvcc failed")
+    def load_library(name):
+        if name == "bl_march":
+            raise RuntimeError("nvcc failed")
 
-    monkeypatch.setattr(compile_cache, "_loaders",
-                        lambda: {"bl_march": broken})
+    monkeypatch.setattr(cuda_build, "load_library", load_library)
     with caplog.at_level(logging.WARNING, compile_cache.__name__):
         compile_cache.enable_persistent_compile_cache()
     assert "nvcc failed" in caplog.text

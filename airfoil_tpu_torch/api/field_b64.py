@@ -3,7 +3,7 @@
 
 ``b64encode(tensors)`` gives, for each tensor, the standard base64 of its
 bytes as ``binascii.b2a_base64(buf, newline=False)`` spells it: ASCII that
-``handlers.encode_reply`` joins into a reply as it is. For CUDA tensors it
+``handlers.reply_parts`` puts into a reply as it is. For CUDA tensors it
 encodes all of them in one launch into one device buffer, copies that
 buffer once into pinned host memory (torch's caching host allocator, a
 buffer per call, so two frames in flight never share one) and waits once;

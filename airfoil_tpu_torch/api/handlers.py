@@ -9,8 +9,9 @@ and JSON keys; ``/health`` reports the torch device instead of a JAX
 backend, and the solving handlers take the device to solve on.
 ``start_warmup`` builds the kernel libraries and captures the solver's
 CUDA graphs in a background thread at server start. Handlers map parsed
-inputs to ``(status_code, payload_dict)``; ``encode_reply`` writes a
-payload as the reply's JSON bytes.
+inputs to ``(status_code, payload_dict)``; ``reply_parts`` gives a
+payload as the reply's JSON bytes in parts, for the transport to write
+unjoined.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ __all__ = [
     "ApiError", "parse_upload", "validate_envelope", "handle_root",
     "handle_health", "handle_upload", "handle_polar", "handle_batch",
     "handle_stats", "LBMSessions", "lbm_config", "start_warmup",
-    "encode_reply",
+    "reply_parts",
 ]
 
 # A raw leaf's stand-in while the rest of a reply is dumped, and its
@@ -358,28 +359,32 @@ def _b64_fields(fields: dict) -> dict:
     base64 of its buffer as ASCII (``field_b64.b64encode``: on a CUDA
     tensor one launch over every field and one copy into pinned memory,
     the strings ``memoryview`` slices of it; on a CPU tensor ``bytes``),
-    which ``encode_reply`` writes as a JSON string."""
+    which ``reply_parts`` writes as a JSON string."""
     tensors = [t.to(torch.float32) for t in fields.values()]
     data = field_b64.b64encode(tensors)
     return {k: {"shape": list(t.shape), "dtype": "float32", "data": d}
             for k, t, d in zip(fields, tensors, data)}
 
 
-def encode_reply(payload) -> bytes:
-    """``payload`` as the reply's body: ``json.dumps(payload).encode()``
-    byte for byte, where each raw leaf (ASCII that JSON writes as is, such
-    as base64), a ``bytes`` or a C-contiguous ``memoryview`` of format
-    ``B``, stands for the str it spells. Those leaves are never dumped:
-    the rest is, with a stand-in for each, and the raw bytes are joined in
-    at the stand-ins. A payload without one is dumped as is. Raises
+def reply_parts(payload) -> list:
+    """``payload`` as the reply's body in parts, unjoined: together
+    ``json.dumps(payload).encode()`` byte for byte, where each raw leaf
+    (ASCII that JSON writes as is, such as base64), a ``bytes`` or a
+    C-contiguous ``memoryview`` of format ``B``, stands for the str it
+    spells. Those leaves are never dumped: the rest is, with a stand-in for
+    each, and split at the stand-ins; the parts are the dumped pieces, each
+    with its quotes, and between them the leaves themselves (a memoryview
+    as a flat view of the same memory), which the transport writes without
+    a join. A payload without one is one part, its dump. Raises
     ``TypeError`` for another memoryview, as ``json.dumps`` does, and
     ``ValueError`` where a str of a payload with raw leaves is the
     stand-in."""
     raws = []
 
     def stand_in(o):
-        if not (isinstance(o, bytes) or isinstance(o, memoryview)
-                and o.format == "B" and o.c_contiguous):
+        if isinstance(o, memoryview) and o.format == "B" and o.c_contiguous:
+            o = o.cast("B")
+        elif not isinstance(o, bytes):
             raise TypeError(f"Object of type {type(o).__name__} "
                             "is not JSON serializable")
         raws.append(o)
@@ -387,15 +392,16 @@ def encode_reply(payload) -> bytes:
 
     text = json.dumps(payload, default=stand_in).encode()
     if not raws:
-        return text
-    parts = text.split(_RAW_JSON)
-    if len(parts) != len(raws) + 1:
+        return [text]
+    pieces = text.split(_RAW_JSON)
+    if len(pieces) != len(raws) + 1:
         raise ValueError(f"a str of the reply dumps as {_RAW_JSON!r}, the "
                          "stand-in of its bytes")
-    chunks = [parts[0]]
-    for data, part in zip(raws, parts[1:]):
-        chunks += (b'"', data, b'"', part)
-    return b"".join(chunks)
+    parts = [pieces[0] + b'"']
+    for data, piece in zip(raws, pieces[1:-1]):
+        parts += (data, b'"' + piece + b'"')
+    parts += (raws[-1], b'"' + pieces[-1])
+    return parts
 
 
 def lbm_config(nx=None) -> config.LBMConfig:

@@ -7,10 +7,15 @@ multipart/form-data parser. ``/upload_airfoil/``, ``/polar/`` and
 ``/batch/`` (N file parts named ``files``) solve on the server's device
 under the ``solve`` rate limit and the solver lock; ``GET /stats`` reads
 the analysis counter; ``/lbm/start`` takes an optional ``nx``
-(``handlers.lbm_config``). A request is traced as ``utils.profiling.span``s:
-``http <route>`` (``http other`` for an unknown path) around
-``http.read``, ``http.encode`` (``handlers.encode_reply``) and
-``http.write``. ``serve`` starts ``handlers.start_warmup`` (the kernel
+(``handlers.lbm_config``). A JSON reply leaves as one gather write
+(``socket.sendmsg``) of its header block and ``handlers.reply_parts``,
+straight from the buffers the parts live in, with no join; where the
+socket has no ``sendmsg``, each part is written in turn. ``gather_writes``
+counts the replies written by ``sendmsg``. A request is traced as
+``utils.profiling.span``s: ``http <route>`` (``http other`` for an
+unknown path) around ``http.read``, ``http.encode``
+(``handlers.reply_parts``) and ``http.write`` (the headers and the
+gather write). ``serve`` starts ``handlers.start_warmup`` (the kernel
 libraries and the solver's CUDA graphs, in a background thread), as the
 reference's does. The page at ``/app`` is the port's byte copy of the
 reference's ``ui/static_app.html``.
@@ -43,6 +48,13 @@ __all__ = ["serve", "make_server"]
 _ROUTES = ("/", "/health", "/stats", "/app", "/app/", "/upload_airfoil/",
            "/polar/", "/batch/", "/lbm/start", "/lbm/frame", "/lbm/stop")
 _SPANS = {route: f"http {route}" for route in _ROUTES}
+
+# The replies written by one gather write (``_write_parts``), under a lock:
+# the server is threaded.
+gather_writes = 0
+_GATHER_LOCK = threading.Lock()
+# The buffers one ``sendmsg`` takes at most (Linux's IOV_MAX).
+_IOV_MAX = 1024
 
 _STATIC_APP = os.path.join(os.path.dirname(os.path.dirname(__file__)), "ui",
                            "static_app.html")
@@ -78,6 +90,31 @@ def _parse_multipart(body: bytes, content_type: str):
         else:
             fields[name] = payload.decode("utf-8", errors="ignore")
     return fields, files
+
+
+def _write_parts(connection, wfile, parts):
+    """Write ``parts`` (bytes-like, flat) in order: by ``sendmsg`` on
+    ``connection``, resumed over a partial send by slicing a memoryview of
+    the part it stopped in, and counted in ``gather_writes``; where the
+    connection has no ``sendmsg``, by ``wfile.write`` a part. Neither way
+    joins or copies a part."""
+    global gather_writes
+    sendmsg = getattr(connection, "sendmsg", None)
+    if sendmsg is None:
+        for part in parts:
+            wfile.write(part)
+        return
+    # Counted before the bytes go: a client that has the reply sees it.
+    with _GATHER_LOCK:
+        gather_writes += 1
+    parts, i = list(parts), 0
+    while i < len(parts):
+        sent = sendmsg(parts[i:i + _IOV_MAX])
+        while i < len(parts) and sent >= len(parts[i]):
+            sent -= len(parts[i])
+            i += 1
+        if sent:
+            parts[i] = memoryview(parts[i])[sent:]
 
 
 def _f(fields, key, default=None):
@@ -138,14 +175,25 @@ def make_server(host: str = "0.0.0.0", port: int | None = None,
         # ── plumbing ────────────────────────────────────────────────────
         def _send_json(self, status: int, payload: dict):
             with span("http.encode"):
-                data = handlers.encode_reply(payload)
+                parts = handlers.reply_parts(payload)
             with span("http.write"):
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(data)))
+                self.send_header("Content-Length",
+                                 str(sum(map(len, parts))))
                 self.send_header("Access-Control-Allow-Origin", "*")
-                self.end_headers()
-                self.wfile.write(data)
+                _write_parts(self.connection, self.wfile,
+                             [self._header_block(), *parts])
+
+        def _header_block(self) -> bytes:
+            """The buffered status line and headers with the blank line
+            that ends them, as ``end_headers`` would flush them (none on
+            HTTP/0.9); the buffer is emptied."""
+            if self.request_version != "HTTP/0.9":
+                self._headers_buffer.append(b"\r\n")
+            head = b"".join(getattr(self, "_headers_buffer", ()))
+            self._headers_buffer = []
+            return head
 
         def _send_file(self, path: str, ctype: str):
             try:

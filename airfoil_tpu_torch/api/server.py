@@ -6,7 +6,8 @@ budget when slowapi is installed (root 10/min, health 20/min, solves
 5/min, ``/lbm/start`` 10/min), CORS from ``config.ALLOWED_ORIGINS``, at
 most ``config.MAX_CONCURRENT_SOLVES`` solves at a time, and each solve on
 a worker thread (``anyio.to_thread``). All logic lives in ``handlers``;
-``/lbm/frame`` answers ``handlers.encode_reply``'s bytes, as minihttp does,
+``/lbm/frame`` answers ``handlers.reply_parts``' bytes, as minihttp does,
+joined into the one body a ``Response`` takes,
 and ``/lbm/start`` takes its optional ``nx`` as text for
 ``handlers.lbm_config`` to check (a 400 with a ``detail``).
 The device is resolved once, in ``create_app`` (``device.resolve_device``:
@@ -182,8 +183,8 @@ if HAVE_FASTAPI:
             from anyio import to_thread
 
             return await to_thread.run_sync(lambda: Response(
-                handlers.encode_reply(_unwrap(sessions.frame, session,
-                                              alpha, u0, fields)),
+                b"".join(handlers.reply_parts(_unwrap(
+                    sessions.frame, session, alpha, u0, fields))),
                 media_type="application/json"))
 
         @app.post("/lbm/stop")

@@ -36,7 +36,8 @@ fails (non-zero exit, no result line) if any phase fails:
 4. server  — the port's HTTP server on the card: /health, /lbm/start,
    20 /lbm/frame posts (one changes alpha), /lbm/stop; checks every
    decoded field, that the frames went through ``lbm_steps``, their
-   fields through one ``field_b64`` launch a frame, and the three masks'
+   fields through one ``field_b64`` launch a frame, each reply through
+   one gather write (``minihttp.gather_writes``), and the three masks'
    words (start, alpha change) through ``cell_word``, and, from a
    ``torch.profiler`` trace of one frame, that a frame launches exactly
    one LBM kernel, no word kernel and at most one encode kernel;
@@ -873,6 +874,8 @@ def phase_server(kernel, field_b64, make_server, parse_upload, build_mask,
                  spf):
     """Drives the served /lbm/* path; returns ({kernel: its launches in the
     run}, median frame ms)."""
+    from airfoil_tpu_torch.api import minihttp
+
     dat = "NACA 2412\n" + "\n".join(f" {x:.6f} {y:.6f}"
                                     for x, y in naca4_coords())
     dat = dat.encode()
@@ -896,6 +899,7 @@ def phase_server(kernel, field_b64, make_server, parse_upload, build_mask,
         status, meta = _post(url + "/lbm/start", {"alpha": 6.0},
                              {"file": ("naca2412.dat", dat)})
         require(status == 200, f"/lbm/start -> {status} {meta}")
+        sent = minihttp.gather_writes
         ny, nx = meta["grid"]
         lat = []
         alpha = 6.0
@@ -923,19 +927,22 @@ def phase_server(kernel, field_b64, make_server, parse_upload, build_mask,
                         f"{name}: fluid cells must be finite")
         launches, tiled = kernel.launches, kernel.tiled_launches
         words, encodes = kernel.word_launches, field_b64.launches
+        gathers = minihttp.gather_writes - sent
         # More frames under the profiler, one trace each: the kernels a
         # frame launches. The counter shows one lbm_steps launch a frame; a
         # trace may drop a record, so up to three frames are traced, none
         # may show a tiled or word kernel or more than one resident one,
         # and one must show exactly one.
         for _ in range(3):
-            before = kernel.launches, field_b64.launches
+            before = (kernel.launches, field_b64.launches,
+                      minihttp.gather_writes)
             with traced() as prof:
                 status, _ = _post(url + "/lbm/frame",
                                   {"session": meta["session"],
                                    "fields": "speed"})
-            require(status == 200 and (kernel.launches, field_b64.launches)
-                    == (before[0] + 1, before[1] + 1),
+            require(status == 200 and (kernel.launches, field_b64.launches,
+                                       minihttp.gather_writes)
+                    == tuple(n + 1 for n in before),
                     f"profiled /lbm/frame -> {status}")
             ev = kernel_events(prof, "lbm_resident_kernel",
                                "lbm_tiled_kernel", "cell_word_kernel",
@@ -969,14 +976,15 @@ def phase_server(kernel, field_b64, make_server, parse_upload, build_mask,
     # Words: /lbm/start builds the mask twice (the tunnel's reset, then
     # the handler's set_alpha), the alpha change once more.
     require(launches == N_FRAMES and tiled == 0 and words == 3
-            and encodes == N_FRAMES,
+            and encodes == N_FRAMES and gathers == N_FRAMES,
             f"{launches} lbm_steps, {tiled} tiled, {words} cell_word and "
-            f"{encodes} field_b64 kernel calls for {N_FRAMES} frames and 3 "
-            f"masks")
+            f"{encodes} field_b64 kernel calls and {gathers} gather writes "
+            f"for {N_FRAMES} frames and 3 masks")
     med = statistics.median(lat)
     log(f"[server] {N_FRAMES} frames at {nx}x{ny} (alpha 6 -> 10), "
         f"{launches} lbm_steps launches, {words} cell_word launches, "
         f"{encodes} field_b64 launches (3 fields a frame), "
+        f"{gathers} gather writes, "
         f"CL={fr['cl']} CD={fr['cd']}, median frame latency {med:.3f} ms "
         f"(HTTP round trip)")
     return {"lbm_steps": launches, "cell_word": words,
